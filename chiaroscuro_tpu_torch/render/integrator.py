@@ -1,0 +1,332 @@
+"""Wavefront path-tracing integrator (torch port of
+``chiaroscuro_tpu/render/integrator.py``).
+
+All rays advance together through a loop over bounce index with an active
+mask; terminated lanes stop contributing.  The estimator is the reference's
+per-pixel recursion (``src/rayTracer.cpp:76-135``) as masked updates of
+(throughput, L), with its semantics kept exactly:
+
+- emission only on *primary* hits, weighted by max(0, dot(wo, n))
+  (``rayTracer.cpp:85``) — secondary light hits contribute only via NEE;
+- NEE geometric term max(0, cos_i * cos_l) / (1 + d^2) — the reference's
+  nonstandard falloff (``rayTracer.cpp:106``);
+- NEE weight = area * n_lights (uniform light pick; ``rayTracer.cpp:108``),
+  light point from v0 ~ U(0,1), v1 ~ U(0, 1-v0) (``rayTracer.cpp:96-97``);
+- shadow ray from hit + 1e-3 * n with tmax = distance, excluding the sampled
+  light triangle id (``rayTracer.cpp:104``, ``kdtree.cpp:322-331``);
+- Russian roulette on Kmax = max(Kd)/pi, survival iff u <= Kmax,
+  throughput *= f * |cos| / (pdf * Kmax) (``rayTracer.cpp:124-131``);
+- depth cap k == K stops after direct lighting (``rayTracer.cpp:113-116``);
+- miss at any depth contributes throughput * background
+  (``rayTracer.cpp:134``);
+- flat per-triangle normal = mean of vertex normals, used raw
+  (``kdtree.cpp:58-60``).
+
+Intersectors are injected (``closest_fn``, ``any_fn``): planar-native ones
+(the dense kernels, ``.planar_fn``) get the wavefront as is, with ``live``
+row hints; row-major ones (the brute oracle) get explicit conversions.
+Not ported yet: the bounce compaction and spatial ray sort of the cluster
+path (ROADMAP item 9) and the Phong extension (ROADMAP item 11).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from chiaroscuro_tpu_torch.geometry import planar as P
+from chiaroscuro_tpu_torch.sampling import prng
+from chiaroscuro_tpu_torch.sampling.samplers import (
+    M_1_PI,
+    sample_wi_diffuse_planar,
+)
+from chiaroscuro_tpu_torch.scene.scene_arrays import BRDF_EMISSIVE, SceneTensors
+
+EPS_OFFSET = float(np.float32(1.0e-3))  # rayTracer.cpp:104,130
+
+
+def _wrap(c):
+    """Texture-coordinate wrap (``mesh.cpp:21-35``): fractional part, except
+    exactly-integral coords > 0 map to 1.0."""
+    f = c - torch.floor(c)
+    return torch.where((f == 0.0) & (c > 0.0), 1.0, f)
+
+
+def _interp_uv(scene: SceneTensors, tid, u, v):
+    w = 1.0 - u - v
+    return (
+        scene.uv0[tid] * w[..., None]
+        + scene.uv1[tid] * u[..., None]
+        + scene.uv2[tid] * v[..., None]
+    )
+
+
+def _atlas_fetch(scene: SceneTensors, tex_id, uv, fallback):
+    """Nearest-texel fetch with repeat wrap from the flat atlas, or
+    ``fallback`` where ``tex_id < 0`` (row-major: uv (R, 2), fallback (R, 3)).
+    Coordinates that wrap to exactly 1.0 clamp to the last texel."""
+    if scene.tex_data.shape[0] <= 1:
+        return fallback   # untextured scene: only the dummy texel
+    safe_id = torch.clamp_min(tex_id, 0).long()
+    tw = scene.tex_width[safe_id]
+    th = scene.tex_height[safe_id]
+    off = scene.tex_offset[safe_id]
+    x = torch.minimum((_wrap(uv[..., 0]) * tw).to(torch.int32), tw - 1)
+    y = torch.minimum((_wrap(uv[..., 1]) * th).to(torch.int32), th - 1)
+    texel = scene.tex_data[(off + y * tw + x).long()]
+    return torch.where((tex_id >= 0)[..., None], texel, fallback)
+
+
+def texture_kd_lookup(scene: SceneTensors, tid, u, v):
+    """Diffuse albedo at a hit (``rayTracer.cpp:153-157``)."""
+    return _atlas_fetch(
+        scene, scene.tex_id[tid], _interp_uv(scene, tid, u, v), scene.kd[tid]
+    )
+
+
+def _atlas_fetch_planar(scene: SceneTensors, tex_id, uvp, fallback):
+    """Planar :func:`_atlas_fetch`: tex_id (B0, 128), uvp (2, B0, 128),
+    fallback (3, B0, 128)."""
+    if scene.tex_data.shape[0] <= 1:
+        return fallback
+    safe_id = torch.clamp_min(tex_id, 0).long()
+    tw = scene.tex_width[safe_id]
+    th = scene.tex_height[safe_id]
+    off = scene.tex_offset[safe_id]
+    x = torch.minimum((_wrap(uvp[0]) * tw).to(torch.int32), tw - 1)
+    y = torch.minimum((_wrap(uvp[1]) * th).to(torch.int32), th - 1)
+    texel = scene.tex_data.T[:, (off + y * tw + x).long()]   # (3, B0, 128)
+    return torch.where((tex_id >= 0)[None], texel, fallback)
+
+
+def _light_table(scene: SceneTensors):
+    """(16, L) per-light columns: v0 | v1 | v2 | normal | ke | area."""
+    lids = scene.light_ids.long()
+    return torch.cat(
+        [
+            scene.tri_v0[lids],
+            scene.tri_v1[lids],
+            scene.tri_v2[lids],
+            scene.normal[lids],
+            scene.ke[lids],
+            scene.light_areas[:, None],
+        ],
+        dim=1,
+    ).T.contiguous()
+
+
+def _row_live(mask):
+    """(B0, 128) bool -> (B0, 1) int32: any lane of the row consumed."""
+    return mask.any(dim=1, keepdim=True).to(torch.int32)
+
+
+def trace_paths_planar(
+    scene: SceneTensors,
+    origins: torch.Tensor,    # (3, B0, 128) planar ray origins
+    dirs: torch.Tensor,       # (3, B0, 128) planar primary directions
+    k0: torch.Tensor,         # (B0, 128) per-(pixel,sample) key word 0
+    k1: torch.Tensor,         # (B0, 128) key word 1
+    depth: int,               # scene.k — max path vertices
+    background: torch.Tensor,  # (3,)
+    closest_fn,
+    any_fn,
+    with_stats: bool = False,
+):
+    """Estimate radiance for a planar wavefront.  Returns (3, B0, 128).
+
+    With ``with_stats=True`` returns ``(radiance, stats)`` where stats is a
+    (depth, 2) int64 tensor of per-bounce useful-work counts:
+    ``stats[k] = (lanes active at bounce entry, lanes that hit)`` — the
+    closest-hit and shadow queries whose results are consumed.  The
+    wavefront issues full-width queries regardless; stats/issued is its SIMD
+    occupancy.
+    """
+    if scene.has_specular:
+        raise NotImplementedError(
+            "the Phong specular extension is not ported yet (ROADMAP item 11)"
+        )
+    B = tuple(k0.shape)
+    dev = origins.device
+    n_lights = scene.n_lights
+    bg = background[:, None, None]  # (3, 1, 1)
+    textured = scene.tex_data.shape[0] > 1
+    closest_planar = getattr(closest_fn, "planar_fn", None)
+    any_planar = getattr(any_fn, "planar_fn", None)
+    accepts_live = getattr(closest_fn, "accepts_live", False)
+    if n_lights > 0:
+        light_table = _light_table(scene)
+
+    # Dead-lane parking: an origin beyond every scene box along +x, pointing
+    # +x.  Used for non-hit lanes' shadow rays and terminated lanes' bounce
+    # rays; every radiance/throughput update is masked on `active`/`hit`, so
+    # intersector outputs for parked lanes are never consumed.
+    wmax, wmin = scene.world_max, scene.world_min
+    park_x = wmax[0] + (wmax[0] - wmin[0]) + 1.0
+    zero = torch.zeros(B, dtype=torch.float32, device=dev)
+    park_o = torch.stack([park_x.expand(B), zero, zero])
+    park_d = torch.stack([torch.ones_like(zero), zero, zero])
+
+    def r2(x):  # per-ray scalar -> (B0, 128)
+        return x.reshape(B)
+
+    origin, direction = origins, dirs
+    throughput = torch.ones((3,) + B, dtype=torch.float32, device=dev)
+    radiance = torch.zeros((3,) + B, dtype=torch.float32, device=dev)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    stats = torch.zeros((depth, 2), dtype=torch.int64, device=dev)
+
+    for k in range(1, depth + 1):
+        # Closest hit + hit resolution (rayTracer.cpp:148-166).
+        if closest_planar is not None:
+            if accepts_live:
+                res = closest_planar(origin, direction, live=_row_live(active))
+            else:
+                res = closest_planar(origin, direction)
+            hit = res.hit & active
+            bu, bv = res.u, res.v
+            A = res.attrs
+            # The reference's barycentric form (rayTracer.cpp:150-151), as on
+            # the row-major path, not v0 + u*e1 + v*e2: forming 1-u-v before
+            # scaling is better conditioned, so op-by-op rounding lands where
+            # XLA's FMA evaluation of either form does.  Near a wall's edge
+            # the side a hit lands on decides whether its bounce re-hits the
+            # wall (Cornell's default camera sits on such an edge).
+            # v0 + e1 reproduces v1 exactly where v1 - v0 was exact.
+            v0 = A["v0"]
+            point = (
+                P.pscale(1.0 - bu - bv, v0)
+                + P.pscale(bu, v0 + A["e1"])
+                + P.pscale(bv, v0 + A["e2"])
+            )
+            normal = A["normal"]
+            ke_hit = A["ke"]
+            btype = A["btype"]
+            if textured:
+                uvp = (
+                    A["uv0"] * (1.0 - bu - bv)[None]
+                    + A["uv1"] * bu[None]
+                    + A["uv2"] * bv[None]
+                )
+                kd = _atlas_fetch_planar(scene, A["texid"], uvp, A["kd"])
+            else:
+                kd = A["kd"]
+        else:
+            res = closest_fn(P.to_rows(origin), P.to_rows(direction))
+            tid = res.tid.long()
+            hit = r2(res.hit) & active
+            u_, v_ = res.u, res.v
+            point = P.to_planar(
+                scene.tri_v0[tid] * (1.0 - u_ - v_)[:, None]
+                + scene.tri_v1[tid] * u_[:, None]
+                + scene.tri_v2[tid] * v_[:, None],
+                B,
+            )
+            normal = P.to_planar(scene.normal[tid], B)
+            kd = P.to_planar(texture_kd_lookup(scene, tid, u_, v_), B)
+            ke_hit = P.to_planar(scene.ke[tid], B)
+            btype = r2(scene.brdf_type[tid])
+
+        # Miss -> background, terminate (rayTracer.cpp:134).
+        radiance = radiance + P.pwhere(active & ~hit, throughput * bg, 0.0)
+
+        nee_origin = P.pwhere(hit, point + EPS_OFFSET * normal, park_o)
+        wo = P.pnormalize(origin - point)
+        f_brdf = kd * M_1_PI  # Diffuse::f (brdf.cpp:70)
+
+        if k == 1:
+            emitted = P.pwhere(btype == BRDF_EMISSIVE, ke_hit, 0.0)
+            direct = P.pscale(torch.clamp_min(P.pdot(wo, normal), 0.0), emitted)
+        else:
+            direct = torch.zeros((3,) + B, dtype=torch.float32, device=dev)
+
+        un = prng.bounce_uniforms_planar(k0, k1, k)  # (N_BOUNCE_DIMS, B0, 128)
+        shadow_live = _row_live(hit)
+
+        def occluded_by(o, d, tmax, excl):
+            if any_planar is None:
+                return r2(any_fn(
+                    P.to_rows(o), P.to_rows(d), tmax.reshape(-1),
+                    excl.reshape(-1),
+                ))
+            if accepts_live:
+                return any_planar(o, d, tmax, excl, live=shadow_live)
+            return any_planar(o, d, tmax, excl)
+
+        if n_lights > 0:
+            li = torch.clamp_max(
+                (un[prng.DIM_LIGHT_SEL] * n_lights).to(torch.int32),
+                n_lights - 1,
+            ).long()                                        # (B0, 128)
+            ltid = scene.light_ids[li]
+            # Per-light table fetched by index (value-exact; the TPU used a
+            # one-hot matmul).
+            lrow = light_table[:, li]                       # (16, B0, 128)
+            lv0 = lrow[0:3]
+            lv1 = lrow[3:6]
+            lv2 = lrow[6:9]
+            lnormal = lrow[9:12]
+            lke = lrow[12:15]
+            larea = lrow[15]
+
+            # v0 ~ U(0,1), v1 ~ U(0, 1-v0)  (rayTracer.cpp:96-97)
+            b0 = un[prng.DIM_LIGHT_U]
+            b1 = un[prng.DIM_LIGHT_V] * (1.0 - b0)
+            lpoint = (
+                P.pscale(b0, lv0)
+                + P.pscale(b1, lv1)
+                + P.pscale(1.0 - b0 - b1, lv2)
+            )
+
+            to_light = lpoint - point
+            dist = P.pnorm(to_light)
+            wl = P.pnormalize(to_light)
+            occluded = occluded_by(
+                nee_origin, P.pwhere(hit, wl, park_d), dist, ltid
+            )
+            geometric = torch.clamp_min(
+                P.pdot(normal, wl) * P.pdot(-wl, lnormal) / (1.0 + dist * dist),
+                0.0,
+            )
+            nee = lke * (geometric * larea * n_lights)[None] * f_brdf
+            direct = direct + P.pwhere(~occluded, nee, 0.0)
+
+        # Point-light direct illumination (extension; no RNG consumed).
+        no_excl = torch.full(B, -1, dtype=torch.int32, device=dev)
+        for ipl in range(scene.n_point_lights):
+            plp = scene.pl_pos[ipl][:, None, None]        # (3, 1, 1)
+            ple = scene.pl_emit[ipl][:, None, None]
+            to_l = plp - point
+            pdist = P.pnorm(to_l)
+            pwl = P.pnormalize(to_l)
+            pocc = occluded_by(
+                nee_origin, P.pwhere(hit, pwl, park_d), pdist, no_excl
+            )
+            pgeo = torch.clamp_min(P.pdot(normal, pwl), 0.0) / (
+                1.0 + pdist * pdist
+            )
+            direct = direct + P.pwhere(~pocc, ple * pgeo[None] * f_brdf, 0.0)
+
+        radiance = radiance + P.pwhere(hit, throughput * direct, 0.0)
+
+        # Extend the path (rayTracer.cpp:119-131).
+        wi, pdf = sample_wi_diffuse_planar(
+            normal, un[prng.DIM_BSDF_U], un[prng.DIM_BSDF_V]
+        )
+        kmax = f_brdf.amax(dim=0)
+        survive = (pdf > 0.0) & (un[prng.DIM_RR] <= kmax)
+        cosine = P.pdot(normal, wi).abs()
+        scale = f_brdf * (
+            cosine / torch.where(pdf > 0.0, pdf * kmax, 1.0)
+        )[None]
+
+        new_active = hit & survive & (k < depth)
+        throughput = P.pwhere(new_active, throughput * scale, throughput)
+        origin = P.pwhere(new_active, point + EPS_OFFSET * normal, park_o)
+        direction = P.pwhere(new_active, wi, park_d)
+        stats[k - 1, 0] = active.sum()
+        stats[k - 1, 1] = hit.sum()
+        active = new_active
+
+    if with_stats:
+        return radiance, stats
+    return radiance

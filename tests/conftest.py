@@ -76,3 +76,4 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running render tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skips without one")
