@@ -3,13 +3,17 @@
 The integrator (``render/integrator.py``) is agnostic to how rays are
 intersected; this module picks the backend:
 
-- ``"dense"`` — the dense kernels K1/K2 (``ops/intersect_cuda.py``): CUDA
-  on a GPU, their plain torch versions on the CPU;
-- ``"brute"`` — masked all-pairs Moller-Trumbore (``geometry/intersect.py``),
+- ``"dense"``   — the dense kernels K1/K2 (``ops/intersect_cuda.py``):
+  CUDA on a GPU, their plain torch versions on the CPU;
+- ``"cluster"`` — the cluster cull K3 and streaming visits K6/K7
+  (``ops/cluster_cuda.py``): Triton and CUDA on a GPU, their plain torch
+  versions on the CPU;
+- ``"brute"``   — masked all-pairs Moller-Trumbore (``geometry/intersect.py``),
   the oracle;
-- ``"auto"``  — picks by scene size.  Scenes above the dense limit need the
-  cluster kernels (GPU) or the BVH (CPU), which are not ported yet, so
-  ``auto`` raises for them instead of degrading to a slower path.
+- ``"auto"``    — picks by scene size and device: dense up to 4,096
+  triangles, cluster above on a GPU.  The CPU's large-scene path (the BVH)
+  is not ported yet, so ``auto`` raises there instead of degrading to a
+  slower path.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from chiaroscuro_tpu_torch.geometry.intersect import (
     intersect_any_bruteforce,
     intersect_closest_bruteforce,
 )
+from chiaroscuro_tpu_torch.ops import cluster_cuda
 from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
 
 # Largest scene the dense sweep serves (the JAX package's
@@ -35,9 +40,12 @@ def resolve_auto(n_tris: int, on_gpu: bool) -> str:
     if n_tris <= AUTO_DENSE_MAX_TRIS:
         return "dense"
     if on_gpu:
+        if n_tris < cluster_cuda.MAX_TRIS:
+            return "cluster"
         raise NotImplementedError(
-            f"scene has {n_tris} triangles > {AUTO_DENSE_MAX_TRIS}: the "
-            "cluster intersection kernels are not ported yet (ROADMAP item 9)"
+            f"scene has {n_tris} triangles >= 2^24: the cluster path keeps "
+            "ids below 2^24, and the BVH that the JAX package falls back to "
+            "is not ported yet (ROADMAP item 10)"
         )
     raise NotImplementedError(
         f"scene has {n_tris} triangles > {AUTO_DENSE_MAX_TRIS}: the BVH "
@@ -74,9 +82,12 @@ def make_intersectors(
 
         return closest_fn, any_fn
 
-    if method in ("bvh", "cluster", "pallas"):
+    if method == "cluster":
+        return cluster_cuda.make_cluster_intersectors(scene)
+
+    if method in ("bvh", "pallas"):
         raise NotImplementedError(
-            f"intersector {method!r} is not ported; use 'dense' (the CUDA "
-            "kernels), 'brute' or 'auto'"
+            f"intersector {method!r} is not ported; use 'dense' or "
+            "'cluster' (the CUDA kernels), 'brute' or 'auto'"
         )
     raise ValueError(f"unknown intersector method: {method!r}")

@@ -10,6 +10,7 @@ batch render and export the image.  ``platform`` picks the torch device:
 from __future__ import annotations
 
 import sys
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -57,10 +58,17 @@ def run(argv: Sequence[str]) -> Renderer:
                 f"Position {lp.position} of color {lp.color} "
                 f"and intesity {lp.intensity}"
             )
+    t0 = time.perf_counter()
     scene = load_scene(cfg, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    scene_seconds = time.perf_counter() - t0
     renderer = Renderer(scene, cfg)
+    renderer.phase_seconds["scene"] = scene_seconds
     renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview)
+    t0 = time.perf_counter()
     renderer.export_image(cfg.render_path)
+    renderer.phase_seconds["export"] = time.perf_counter() - t0
     return renderer
 
 

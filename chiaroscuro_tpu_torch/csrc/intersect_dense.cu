@@ -36,59 +36,24 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC.  -fmad=false keeps every product
 // and sum rounded on its own, as torch's eager ops round them, and the
-// operand order below is _mt_core's, so the kernels equal their plain torch
+// operand order in mt_core.cuh is _mt_core's, so the kernels equal their plain torch
 // versions (ops/intersect_cuda.py) bit for bit.  Contracting to FMA is
 // later work that will have to bound id flips at near-ties.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mt_core.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;     // rays per row = threads per block
+using mt::kBig;
+using mt::kLanes;
+using mt::load_ray;
+using mt::Ray;
+
 constexpr int kTile = 256;      // triangles staged in shared memory per pass
 constexpr int kTriStride = 9;   // v0 | e1 | e2
-constexpr int kAttrK = 32;      // attribute row width (ops/intersect_cuda.py ATTR_K)
-constexpr float kBig = 3.0e38f;
-constexpr float kFltEps = 1.1920928955078125e-07f;  // FLT_EPSILON
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o3,
-                                        const float* __restrict__ d3,
-                                        size_t plane, size_t i) {
-  return Ray{o3[i], o3[plane + i], o3[2 * plane + i],
-             d3[i], d3[plane + i], d3[2 * plane + i]};
-}
-
-// Moller-Trumbore in _mt_core's operand order.
-__device__ __forceinline__ bool mt_hit(const Ray& r, const float* tri,
-                                       float& t, float& u, float& v) {
-  const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-  const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-  const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-  // p = cross(d, e2)
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float a = e1x * px + e1y * py + e1z * pz;
-  const bool nonpar = fabsf(a) >= kFltEps;
-  const float f = 1.0f / (nonpar ? a : 1.0f);
-  const float sx = r.ox - v0x;
-  const float sy = r.oy - v0y;
-  const float sz = r.oz - v0z;
-  u = f * (sx * px + sy * py + sz * pz);
-  // q = cross(s, e1)
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  t = f * (e2x * qx + e2y * qy + e2z * qz);
-  return nonpar && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t >= 0.0f;
-}
 
 // Cooperative copy of triangles [base, base + n) into shared memory.
 __device__ __forceinline__ void stage_tile(float* tile,
@@ -123,7 +88,7 @@ closest_dense_kernel(const int32_t* __restrict__ live,
       __syncthreads();
       for (int j = 0; j < n; ++j) {
         float t, u, v;
-        if (mt_hit(r, &tile[j * kTriStride], t, u, v) && t < best_t) {
+        if (mt::mt_hit(r, &tile[j * kTriStride], 1, t, u, v) && t < best_t) {
           best_t = t;
           best_u = u;
           best_v = v;
@@ -138,17 +103,7 @@ closest_dense_kernel(const int32_t* __restrict__ live,
   u_out[i] = best_u;
   v_out[i] = best_v;
 
-  const bool hit = best_t < kBig;
-  const float4* row_attrs =
-      reinterpret_cast<const float4*>(attrs + (size_t)best_id * kAttrK);
-#pragma unroll
-  for (int q = 0; q < kAttrK / 4; ++q) {
-    const float4 a = hit ? row_attrs[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-    attr_out[(4 * q + 0) * plane + i] = a.x;
-    attr_out[(4 * q + 1) * plane + i] = a.y;
-    attr_out[(4 * q + 2) * plane + i] = a.z;
-    attr_out[(4 * q + 3) * plane + i] = a.w;
-  }
+  mt::store_attrs(attrs, best_t < kBig, best_id, plane, i, attr_out);
 }
 
 __global__ void __launch_bounds__(kLanes)
@@ -176,7 +131,7 @@ any_dense_kernel(const int32_t* __restrict__ live,
       __syncthreads();
       for (int j = 0; j < n && !occ; ++j) {
         float t, u, v;
-        occ = mt_hit(r, &tile[j * kTriStride], t, u, v) && t < tm &&
+        occ = mt::mt_hit(r, &tile[j * kTriStride], 1, t, u, v) && t < tm &&
               base + j != ex;
       }
       // Barrier before the next tile overwrites shared memory; the whole

@@ -1,0 +1,81 @@
+"""Build the port's CUDA sources into shared libraries and load them.
+
+Each ``csrc/<stem>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+``chiaroscuro_tpu_torch/_build/lib<stem>_<hash>.so`` at first use, where the
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source is rebuilt and an unchanged one is reused.  The library
+has a plain C interface and is loaded with ``ctypes``; the caller declares
+the argument types.  A failed build raises with nvcc's output: there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {home}/bin and on PATH); the CUDA "
+            "kernels cannot be built"
+        )
+    return found
+
+
+@functools.cache
+def build_library(stem: str) -> tuple:
+    """Build (once per source, headers and flags) and load
+    ``csrc/<stem>.cu``.
+
+    Returns ``(lib, info)`` where ``info`` holds the library path, the build
+    seconds (0.0 when an earlier build was reused) and nvcc's ``-Xptxas -v``
+    report.  Safe to call for different stems from several threads at once
+    (each nvcc runs as its own process)."""
+    source = os.path.join(CSRC_DIR, f"{stem}.cu")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    so = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    seconds, report = 0.0, ""
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            capture_output=True, text=True,
+        )
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {source}:\n"
+                f"{proc.stderr}{proc.stdout}"
+            )
+        os.replace(tmp, so)
+        report = proc.stderr + proc.stdout
+    return ctypes.CDLL(so), {"path": so, "seconds": seconds, "ptxas": report}

@@ -27,17 +27,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import numpy as np
 import torch
 
 from chiaroscuro_tpu_torch.geometry.intersect import ClosestHit
+from chiaroscuro_tpu_torch.ops.cuda_build import build_library
 
 FLT_EPS = float(np.finfo(np.float32).eps)
 BIG = 3.0e38
@@ -238,60 +233,14 @@ def any_dense_plain(live, o3, d3, tmax, excl, tri_rows):
 # Build and bind the CUDA library.
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "intersect_dense.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            f"nvcc not found (looked in {home}/bin and on PATH); the dense "
-            "intersection kernels cannot be built"
-        )
-    return found
-
-
 @functools.cache
 def build() -> tuple:
-    """Build (once per source and flag set) and load the kernel library.
-
-    Returns ``(lib, info)`` where ``info`` holds the library path, the build
-    seconds (0.0 when an earlier build was reused) and nvcc's ``-Xptxas -v``
-    report.  A failed build raises with nvcc's output."""
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(_BUILD_DIR, f"libintersect_dense_{tag}.so")
-    seconds, report = 0.0, ""
-    if not os.path.exists(so):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
-                f"{proc.stderr}{proc.stdout}"
-            )
-        os.replace(tmp, so)
-        report = proc.stderr + proc.stdout
-    lib = ctypes.CDLL(so)
+    """Build (once per source and flag set) and load the kernel library
+    (``ops/cuda_build.py``).  Returns ``(lib, info)`` where ``info`` holds
+    the library path, the build seconds (0.0 when an earlier build was
+    reused) and nvcc's ``-Xptxas -v`` report.  A failed build raises with
+    nvcc's output."""
+    lib, info = build_library("intersect_dense")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.closest_dense_launch.argtypes = [vp] * 5 + [ci, ci] + [vp] * 6
     lib.closest_dense_launch.restype = ci
@@ -299,7 +248,7 @@ def build() -> tuple:
     lib.any_dense_launch.restype = ci
     lib.dense_error_string.argtypes = [ci]
     lib.dense_error_string.restype = ctypes.c_char_p
-    return lib, {"path": so, "seconds": seconds, "ptxas": report}
+    return lib, info
 
 
 def _check(name, x, shape, dtype, device):
@@ -327,8 +276,8 @@ def _launch_device(*tensors) -> torch.device:
     grad (the autograd Function is ROADMAP item 7)."""
     if any(x.requires_grad for x in tensors):
         raise NotImplementedError(
-            "the dense intersection kernels have no backward yet (ROADMAP "
-            "item 7); call them under torch.no_grad() on detached inputs"
+            "the intersection kernels have no backward yet (ROADMAP item "
+            "7); call them under torch.no_grad() on detached inputs"
         )
     device = tensors[0].device
     if device.type not in ("cpu", "cuda"):
@@ -425,6 +374,35 @@ def _pad_lanes(x, R):
     return x.reshape(-1, LANE).contiguous()
 
 
+def row_major_pair(closest_planar, any_planar):
+    """The ``(R, 3)`` oracle interface over planar intersectors:
+    ``closest_fn(origins, dirs)`` / ``any_fn(origins, dirs, tmax, excl)``,
+    each carrying its planar function as ``.planar_fn``."""
+
+    def closest_fn(origins, dirs) -> ClosestHit:
+        o3, R = _rows_to_planar(origins)
+        d3, _ = _rows_to_planar(dirs)
+        res = closest_planar(o3, d3)
+        attrs_rows = {
+            k: (pv.reshape(pv.shape[0], -1).T[:R] if pv.dim() == 3
+                else pv.reshape(-1)[:R])
+            for k, pv in res.attrs.items()
+        }
+        return ClosestHit(
+            *(x.reshape(-1)[:R] for x in res[:5]), attrs_rows
+        )
+
+    def any_fn(origins, dirs, tmax, exclude_id):
+        o3, R = _rows_to_planar(origins)
+        d3, _ = _rows_to_planar(dirs)
+        occ = any_planar(o3, d3, _pad_lanes(tmax, R), _pad_lanes(exclude_id, R))
+        return occ.reshape(-1)[:R]
+
+    closest_fn.planar_fn = closest_planar
+    any_fn.planar_fn = any_planar
+    return closest_fn, any_fn
+
+
 def make_dense_intersectors(scene):
     """The dense intersector pair over the scene's triangles.
 
@@ -448,27 +426,7 @@ def make_dense_intersectors(scene):
             excl.to(torch.int32).contiguous(), tri_rows,
         )
 
-    def closest_fn(origins, dirs) -> ClosestHit:
-        o3, R = _rows_to_planar(origins)
-        d3, _ = _rows_to_planar(dirs)
-        res = closest_planar(o3, d3)
-        attrs_rows = {
-            k: (pv.reshape(pv.shape[0], -1).T[:R] if pv.dim() == 3
-                else pv.reshape(-1)[:R])
-            for k, pv in res.attrs.items()
-        }
-        return ClosestHit(
-            *(x.reshape(-1)[:R] for x in res[:5]), attrs_rows
-        )
-
-    def any_fn(origins, dirs, tmax, exclude_id):
-        o3, R = _rows_to_planar(origins)
-        d3, _ = _rows_to_planar(dirs)
-        occ = any_planar(o3, d3, _pad_lanes(tmax, R), _pad_lanes(exclude_id, R))
-        return occ.reshape(-1)[:R]
-
-    closest_fn.planar_fn = closest_planar
-    any_fn.planar_fn = any_planar
+    closest_fn, any_fn = row_major_pair(closest_planar, any_planar)
     closest_fn.accepts_live = True
     any_fn.accepts_live = True
     return closest_fn, any_fn

@@ -23,13 +23,16 @@ per-pixel recursion (``src/rayTracer.cpp:76-135``) as masked updates of
   (``kdtree.cpp:58-60``).
 
 Intersectors are injected (``closest_fn``, ``any_fn``): planar-native ones
-(the dense kernels, ``.planar_fn``) get the wavefront as is, with ``live``
-row hints; row-major ones (the brute oracle) get explicit conversions.
-Not ported yet: the bounce compaction and spatial ray sort of the cluster
-path (ROADMAP item 9) and the Phong extension (ROADMAP item 11).
+(the dense and cluster kernels, ``.planar_fn``) get the wavefront as is, the
+dense ones with ``live`` row hints; row-major ones (the brute oracle) get
+explicit conversions.  Bounce compaction and the cluster path's spatial ray
+sort (``compact=True``) are pure lane permutations.  Not ported yet: the
+Phong extension (ROADMAP item 11).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -43,6 +46,16 @@ from chiaroscuro_tpu_torch.sampling.samplers import (
 from chiaroscuro_tpu_torch.scene.scene_arrays import BRDF_EMISSIVE, SceneTensors
 
 EPS_OFFSET = float(np.float32(1.0e-3))  # rayTracer.cpp:104,130
+
+# Bounce-compaction segment width in lanes: live lanes pack to the front of
+# each segment between bounces (the JAX package's value, tuned on the TPU).
+COMPACT_SEG_LANES = 4096
+
+# Per-axis |direction|-share bits in the spatial bounce-sort key: 2 -> 4x4
+# angular bins inside each octant (the JAX package's measured winner on the
+# 480k atrium).  Ordering-only metadata; _spatial_key checks that the key
+# stays below 2^31.
+_DIR_BITS = 2
 
 
 def _wrap(c):
@@ -115,6 +128,101 @@ def _light_table(scene: SceneTensors):
     ).T.contiguous()
 
 
+def _part1by2(x):
+    """Spread the low 10 bits of int32 x to every 3rd bit (Morton helper)."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _morton_cell(origin, wmin, wext):
+    """(B0, 128) int32 15-bit Morton cell (5 bits per axis) of planar
+    origins inside the world box [wmin, wmin + wext]."""
+    morton = torch.zeros(origin.shape[1:], dtype=torch.int32, device=origin.device)
+    for a in range(3):
+        q = torch.clamp((origin[a] - wmin[a]) / wext[a] * 32.0, 0.0, 31.0)
+        morton = morton | (_part1by2(q.to(torch.int32)) << a)
+    return morton
+
+
+def _spatial_key(origin, direction, active, wmin, wext, dir_bits=_DIR_BITS):
+    """(B0, 128) int32 bounce-sort key (``integrator.py:328-356`` of the JAX
+    package): dead lanes last, then the direction octant, then two
+    ``dir_bits``-bit per-axis |direction| shares (an angular bin inside the
+    octant), then the origin's Morton cell.  Rays sharing a row after the
+    sort share a tight (direction cone, cell) bundle, which keeps the
+    cluster cull's per-row box unions small."""
+    cone_w = 2 * dir_bits
+    if cone_w + 18 > 30:
+        raise ValueError(
+            f"dir_bits={dir_bits}: the spatial key needs {cone_w + 19} bits, "
+            "more than an int32 holds"
+        )
+    dead = (~active).to(torch.int32)
+    octant = (
+        (direction[0] < 0).to(torch.int32)
+        | ((direction[1] < 0).to(torch.int32) << 1)
+        | ((direction[2] < 0).to(torch.int32) << 2)
+    )
+    s = direction[0].abs() + direction[1].abs() + direction[2].abs() + 1e-9
+    nb = float(1 << dir_bits)
+    b1 = torch.clamp(direction[0].abs() / s * nb, 0.0, nb - 1.0)
+    b2 = torch.clamp(direction[1].abs() / s * nb, 0.0, nb - 1.0)
+    cone = (b1.to(torch.int32) << dir_bits) | b2.to(torch.int32)
+    return (
+        (dead << (cone_w + 18)) | (octant << (cone_w + 15))
+        | (cone << 15) | _morton_cell(origin, wmin, wext)
+    )
+
+
+def _f32_bits(x):
+    """Flat 32-bit view of an int payload, so it rides a float gather
+    bit for bit (int64 words must hold 32-bit values)."""
+    return x.reshape(-1).to(torch.int32).view(torch.float32)
+
+
+def _sorted_any(any_planar, o, d, tmax, excl, li, hit, wmin, wext):
+    """Shadow query with lane reordering (``_sorted_any`` of the JAX
+    package): sort the wavefront by (shadowless last, light id, origin
+    Morton cell), query the sorted rays, scatter the occlusion bits back.
+
+    A pure permutation — per-lane occlusion does not depend on which rows
+    the lanes share — so radiance is bitwise that of the unsorted query.
+    NEE picks a light per lane, so pixel-order rows mix up to 128 light
+    targets and their cull unions cover most of the scene; sorted rows share
+    one target and a tight origin bundle.  The light id is clamped at 1023
+    in the key (ordering only)."""
+    B = hit.shape
+    key = (
+        ((~hit).to(torch.int32) << 26)
+        | (torch.clamp_max(li, 1023).to(torch.int32) << 16)
+        | _morton_cell(o, wmin, wext)
+    )
+    _, sp = torch.sort(key.reshape(-1), stable=True)
+    sm = torch.stack([
+        o[0].reshape(-1), o[1].reshape(-1), o[2].reshape(-1),
+        d[0].reshape(-1), d[1].reshape(-1), d[2].reshape(-1),
+        tmax.reshape(-1), _f32_bits(excl),
+    ])[:, sp]                                       # one (8, R) gather
+    occ_s = any_planar(
+        sm[0:3].reshape((3,) + B), sm[3:6].reshape((3,) + B),
+        sm[6].reshape(B), sm[7].view(torch.int32).reshape(B),
+    )
+    occ = torch.empty_like(occ_s.reshape(-1))
+    occ[sp] = occ_s.reshape(-1)
+    return occ.reshape(B)
+
+
+def _compact(key, state, n_seg, seg):
+    """Stable-sort each of the ``n_seg`` segments of ``seg`` lanes by
+    ``key`` and move the (16, R) stacked ``state`` rows with one gather."""
+    _, sp = torch.sort(key.reshape(n_seg, seg), dim=1, stable=True)
+    base = torch.arange(n_seg, dtype=sp.dtype, device=sp.device)[:, None] * seg
+    return state[:, (sp + base).reshape(-1)]
+
+
 def _row_live(mask):
     """(B0, 128) bool -> (B0, 1) int32: any lane of the row consumed."""
     return mask.any(dim=1, keepdim=True).to(torch.int32)
@@ -131,6 +239,7 @@ def trace_paths_planar(
     closest_fn,
     any_fn,
     with_stats: bool = False,
+    compact: bool = False,
 ):
     """Estimate radiance for a planar wavefront.  Returns (3, B0, 128).
 
@@ -140,14 +249,44 @@ def trace_paths_planar(
     closest-hit and shadow queries whose results are consumed.  The
     wavefront issues full-width queries regardless; stats/issued is its SIMD
     occupancy.
+
+    ``compact=True`` turns on bounce compaction: at each bounce entry the
+    live lanes are stable-sorted to the front of their COMPACT_SEG_LANES
+    segment, so dead lanes fill whole rows that cull to trip 0.  Where the
+    intersector declares ``prefers_ray_sort`` (the cluster path at K >=
+    1024), the sort is instead one global sort on :func:`_spatial_key`, and
+    shadow rays go through :func:`_sorted_any`.  The state moves by one
+    stable sort of (key, index) and one stacked (16, R) gather, integer
+    payloads riding as float bits; radiance is scattered back to pixel
+    order at the end.  Every per-lane operation is unchanged, so radiance
+    is bitwise that of ``compact=False``.
     """
     if scene.has_specular:
         raise NotImplementedError(
             "the Phong specular extension is not ported yet (ROADMAP item 11)"
         )
     B = tuple(k0.shape)
+    R_flat = B[0] * B[1]
     dev = origins.device
     n_lights = scene.n_lights
+    spatial_sort = compact and bool(getattr(closest_fn, "prefers_ray_sort", False))
+    if spatial_sort and n_lights > 1024:
+        warnings.warn(
+            f"scene has {n_lights} area lights > 1024: the NEE shadow-sort "
+            "key clamps light ids at 1024, so shadow rays for lights beyond "
+            "that share a sort bucket and the per-light row coherence "
+            "degrades (results stay exact).",
+            RuntimeWarning, stacklevel=2,
+        )
+    # One global sort for the spatial key; else segments of
+    # COMPACT_SEG_LANES lanes where they tile the wavefront.
+    seg = R_flat
+    if not spatial_sort and R_flat % COMPACT_SEG_LANES == 0:
+        seg = COMPACT_SEG_LANES
+    n_seg = R_flat // seg
+    # Morton-cell bounds of the spatial key (ordering-only metadata).
+    wmin_s = scene.world_min
+    wext_s = torch.clamp_min(scene.world_max - wmin_s, 1e-6)
     bg = background[:, None, None]  # (3, 1, 1)
     textured = scene.tex_data.shape[0] > 1
     closest_planar = getattr(closest_fn, "planar_fn", None)
@@ -174,8 +313,34 @@ def trace_paths_planar(
     radiance = torch.zeros((3,) + B, dtype=torch.float32, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     stats = torch.zeros((depth, 2), dtype=torch.int64, device=dev)
+    perm = torch.arange(R_flat, dtype=torch.int32, device=dev).reshape(B)
 
     for k in range(1, depth + 1):
+        if compact:
+            if spatial_sort:
+                key = _spatial_key(origin, direction, active, wmin_s, wext_s)
+            else:
+                key = (~active).to(torch.int32)
+            sm = _compact(key, torch.stack([
+                origin[0].reshape(-1), origin[1].reshape(-1),
+                origin[2].reshape(-1),
+                direction[0].reshape(-1), direction[1].reshape(-1),
+                direction[2].reshape(-1),
+                throughput[0].reshape(-1), throughput[1].reshape(-1),
+                throughput[2].reshape(-1),
+                radiance[0].reshape(-1), radiance[1].reshape(-1),
+                radiance[2].reshape(-1),
+                active.to(torch.float32).reshape(-1),     # exact 0/1
+                _f32_bits(k0), _f32_bits(k1), _f32_bits(perm),
+            ]), n_seg, seg).reshape((16,) + B)
+            origin, direction = sm[0:3], sm[3:6]
+            throughput, radiance = sm[6:9], sm[9:12]
+            active = sm[12] > 0.5
+            # Keys are uint32 words in int64: undo the int32 wrap.
+            k0 = sm[13].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            k1 = sm[14].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+            perm = sm[15].view(torch.int32)
+
         # Closest hit + hit resolution (rayTracer.cpp:148-166).
         if closest_planar is not None:
             if accepts_live:
@@ -242,7 +407,10 @@ def trace_paths_planar(
         un = prng.bounce_uniforms_planar(k0, k1, k)  # (N_BOUNCE_DIMS, B0, 128)
         shadow_live = _row_live(hit)
 
-        def occluded_by(o, d, tmax, excl):
+        def occluded_by(o, d, tmax, excl, li=None):
+            if spatial_sort and li is not None and any_planar is not None:
+                return _sorted_any(any_planar, o, d, tmax, excl, li, hit,
+                                   wmin_s, wext_s)
             if any_planar is None:
                 return r2(any_fn(
                     P.to_rows(o), P.to_rows(d), tmax.reshape(-1),
@@ -281,7 +449,7 @@ def trace_paths_planar(
             dist = P.pnorm(to_light)
             wl = P.pnormalize(to_light)
             occluded = occluded_by(
-                nee_origin, P.pwhere(hit, wl, park_d), dist, ltid
+                nee_origin, P.pwhere(hit, wl, park_d), dist, ltid, li
             )
             geometric = torch.clamp_min(
                 P.pdot(normal, wl) * P.pdot(-wl, lnormal) / (1.0 + dist * dist),
@@ -327,6 +495,11 @@ def trace_paths_planar(
         stats[k - 1, 1] = hit.sum()
         active = new_active
 
+    if compact:
+        # Back to pixel order: lane i holds the pixel perm[i].
+        out = torch.empty_like(radiance.reshape(3, -1))
+        out[:, perm.reshape(-1).long()] = radiance.reshape(3, -1)
+        radiance = out.reshape((3,) + B)
     if with_stats:
         return radiance, stats
     return radiance

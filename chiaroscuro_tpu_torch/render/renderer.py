@@ -58,6 +58,7 @@ def render_samples(
     closest_fn,
     any_fn,
     with_stats: bool = False,
+    compact: Optional[bool] = None,
 ):
     """Mean radiance over samples [sample_start, sample_start+n_samples) for
     each pixel of the tile.  Returns (R, 3) float32 (and the (depth, 2)
@@ -66,7 +67,14 @@ def render_samples(
     Every sample's randomness is keyed on the global (pixel index, sample
     index), so the result does not depend on tiling or sample chunking.
     Samples run one wavefront at a time, so memory does not grow with spp.
+
+    ``compact=None`` takes the intersector's ``prefers_compaction`` (the
+    cluster path at K >= 1024): bounce compaction frees work only where
+    dead rows cut intersector cost.  Radiance is bitwise the same either
+    way (``trace_paths_planar``).
     """
+    if compact is None:
+        compact = bool(getattr(closest_fn, "prefers_compaction", False))
     dev = scene.device
     left_upper, dx, dy = (
         torch.from_numpy(np.asarray(x, np.float32)).to(dev)
@@ -98,7 +106,7 @@ def render_samples(
         dirs = primary_ray_dirs_planar(left_upper, dx, dy, pxf, pyf, jx, jy)
         radiance, st = trace_paths_planar(
             scene, origins, dirs, k0, k1, depth, background,
-            closest_fn, any_fn, with_stats=True,
+            closest_fn, any_fn, with_stats=True, compact=compact,
         )
         total = total + radiance
         stats = stats + st
@@ -183,7 +191,12 @@ class Renderer:
     def __init__(self, scene: SceneTensors, cfg: RenderConfig):
         self.scene = scene
         self.cfg = cfg
+        t0 = time.perf_counter()
         self.intersectors = make_intersectors(scene, cfg.intersector)
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
+        # Set-up seconds by phase; the CLI adds "scene" and "export".
+        self.phase_seconds = {"intersectors": time.perf_counter() - t0}
         self.pixels = np.zeros((cfg.yres, cfg.xres, 3), np.float32)
         self.max_val = 0.0
         self._layers = 0

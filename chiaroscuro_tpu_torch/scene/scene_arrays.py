@@ -136,7 +136,16 @@ def build_scene_tensors(
                 m.texture_bump,
             ):
                 if p and p not in textures:
-                    textures[p] = load_texture(p)
+                    if p.startswith("proc:"):
+                        # synthetic scenes carry procedural texture paths
+                        # (scene/synthetic.py) instead of files on disk
+                        from chiaroscuro_tpu_torch.scene.synthetic import (
+                            proc_texture,
+                        )
+
+                        textures[p] = proc_texture(p)
+                    else:
+                        textures[p] = load_texture(p)
 
     # Texture table: dedup by path, pack into a flat texel buffer.
     tex_paths: List[str] = []
@@ -269,7 +278,9 @@ def load_scene(cfg: RenderConfig, device, **obj_kwargs) -> SceneTensors:
 
     ``input`` paths of the form ``builtin:<name>`` resolve to the programmatic
     scenes in :mod:`chiaroscuro_tpu_torch.scene.builtin` (e.g.
-    ``builtin:cornell_box``); anything else is an OBJ file.
+    ``builtin:cornell_box``), ``synthetic:<gen>[:<tris>]`` to the generators
+    in :mod:`chiaroscuro_tpu_torch.scene.synthetic` (e.g.
+    ``synthetic:atrium:480000``); anything else is an OBJ file.
     """
     if cfg.obj_path.startswith("builtin:"):
         from chiaroscuro_tpu_torch.scene import builtin
@@ -277,10 +288,17 @@ def load_scene(cfg: RenderConfig, device, **obj_kwargs) -> SceneTensors:
         name = cfg.obj_path.split(":", 1)[1]
         meshes = getattr(builtin, name)()
     elif cfg.obj_path.startswith("synthetic:"):
-        raise NotImplementedError(
-            "synthetic: scenes are not ported yet (ROADMAP item 9: the "
-            "large-scene slice)"
-        )
+        from chiaroscuro_tpu_torch.scene import synthetic
+
+        parts = cfg.obj_path.split(":")
+        generators = {"atrium": synthetic.atrium}
+        if parts[1] not in generators:
+            raise ValueError(
+                f"unknown synthetic generator {parts[1]!r}; "
+                f"available: {sorted(generators)}"
+            )
+        gen = generators[parts[1]]
+        meshes = gen(int(parts[2])) if len(parts) > 2 else gen()
     else:
         meshes = load_obj(cfg.obj_path, **obj_kwargs)
     scene = build_scene_tensors(

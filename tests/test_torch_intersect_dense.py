@@ -198,8 +198,10 @@ def test_wrapper_checks_inputs():
 def test_auto_dispatch_by_scene_size():
     assert resolve_auto(36, on_gpu=True) == "dense"
     assert resolve_auto(4096, on_gpu=False) == "dense"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        resolve_auto(4097, on_gpu=True)
+    assert resolve_auto(4097, on_gpu=True) == "cluster"
+    assert resolve_auto(481_208, on_gpu=True) == "cluster"
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        resolve_auto(2**24, on_gpu=True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         resolve_auto(480_000, on_gpu=False)
     scene = _port_scene(SCENES["cornell"]())

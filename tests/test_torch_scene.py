@@ -129,5 +129,12 @@ def test_load_scene_builtin_and_unported_inputs(capsys):
     scene = load_scene(cfg, "cpu")
     assert scene.n_tris == 36 and scene.n_lights == 2
     assert "Triangles in scene: 36" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        load_scene(RenderConfig.from_tokens(["input", "synthetic:atrium"]), "cpu")
+    # synthetic: inputs load as the JAX package loads them.
+    from chiaroscuro_tpu.scene.scene_arrays import load_scene as jax_load_scene
+
+    tokens = ["input", "synthetic:atrium:2200"]
+    st = load_scene(RenderConfig.from_tokens(tokens), "cpu")
+    sa = jax_load_scene(JaxRenderConfig.from_tokens(tokens))
+    for k in DATA_FIELDS:
+        np.testing.assert_array_equal(getattr(st, k).numpy(), np.asarray(getattr(sa, k)), err_msg=k)
+    assert st.n_tris == sa.n_tris == 2720 and st.n_lights == 24
