@@ -5,21 +5,31 @@ intersected; this module picks the backend:
 
 - ``"dense"``   — the dense kernels K1/K2 (``ops/intersect_cuda.py``):
   CUDA on a GPU, their plain torch versions on the CPU;
-- ``"cluster"`` — the cluster cull K3 and streaming visits K6/K7
-  (``ops/cluster_cuda.py``): Triton and CUDA on a GPU, their plain torch
-  versions on the CPU;
+- ``"cluster"`` — the cluster cull K3, then the resident visits K4/K5 or
+  the streaming visits K6/K7 (``ops/cluster_cuda.py``): Triton and CUDA on
+  a GPU, their plain torch versions on the CPU.  The route follows the JAX
+  package's rule: resident while the packed cluster matrix is within 72 MiB
+  (every scene from 4,097 triangles to about 384k at M = 128), streaming
+  above; the pair exposes it as ``.route``;
 - ``"brute"``   — masked all-pairs Moller-Trumbore (``geometry/intersect.py``),
   the oracle;
 - ``"auto"``    — picks by scene size and device: dense up to 4,096
   triangles, cluster above on a GPU.  The CPU's large-scene path (the BVH)
   is not ported yet, so ``auto`` raises there instead of degrading to a
   slower path.
+
+Every pair is differentiable through its closest-hit query when it is made
+from a scene whose fields require grad; a loss rebuilds the pair on each
+parameter-substituted scene, and the cluster path takes a prebuilt
+``clusters`` decomposition so that it does not re-cluster
+(``bench.py:340-357``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+from chiaroscuro_tpu_torch.accel.clusters import ClusterArrays
 from chiaroscuro_tpu_torch.geometry.intersect import (
     AnyFn,
     ClosestFn,
@@ -54,8 +64,14 @@ def resolve_auto(n_tris: int, on_gpu: bool) -> str:
 
 
 def make_intersectors(
-    scene: SceneTensors, method: str = "auto", chunk: int = 2048
+    scene: SceneTensors,
+    method: str = "auto",
+    chunk: int = 2048,
+    clusters: Optional[ClusterArrays] = None,
 ) -> Tuple[ClosestFn, AnyFn]:
+    """The (closest_fn, any_fn) pair of ``method`` for ``scene``;
+    ``clusters`` (a prebuilt ``ClusterArrays``) is passed to the cluster
+    path and ignored by the others."""
     if method == "auto":
         method = resolve_auto(scene.n_tris, scene.device.type == "cuda")
 
@@ -83,7 +99,7 @@ def make_intersectors(
         return closest_fn, any_fn
 
     if method == "cluster":
-        return cluster_cuda.make_cluster_intersectors(scene)
+        return cluster_cuda.make_cluster_intersectors(scene, clusters=clusters)
 
     if method in ("bvh", "pallas"):
         raise NotImplementedError(

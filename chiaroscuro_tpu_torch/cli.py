@@ -5,6 +5,8 @@ parse the config, load the scene, construct the renderer, run a one-shot
 batch render and export the image.  ``platform`` picks the torch device:
 ``cuda`` (the default) or ``cpu``.  Without a CUDA device and without
 ``platform cpu`` the CLI raises rather than quietly rendering on the CPU.
+After the render it prints the kernel launches it made and, on the cluster
+path, the visit route (``resident`` K4/K5 or ``stream`` K6/K7).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from chiaroscuro_tpu_torch.ops import cluster_cuda, intersect_cuda
 from chiaroscuro_tpu_torch.render.renderer import Renderer
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
 from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
@@ -33,6 +36,11 @@ def resolve_device(platform: str) -> torch.device:
             "the CPU with the kernels' plain torch versions"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count so far, keyed by kernel name."""
+    return {**intersect_cuda.LAUNCHES, **cluster_cuda.LAUNCHES}
 
 
 def run(argv: Sequence[str]) -> Renderer:
@@ -65,7 +73,12 @@ def run(argv: Sequence[str]) -> Renderer:
     scene_seconds = time.perf_counter() - t0
     renderer = Renderer(scene, cfg)
     renderer.phase_seconds["scene"] = scene_seconds
+    before = launch_counts()
     renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview)
+    launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+    route = getattr(renderer.intersectors[0], "route", None)
+    print(f"Kernel launches: {launched or 'none (plain torch versions)'}"
+          + (f"; cluster route: {route}" if route else ""))
     t0 = time.perf_counter()
     renderer.export_image(cfg.render_path)
     renderer.phase_seconds["export"] = time.perf_counter() - t0

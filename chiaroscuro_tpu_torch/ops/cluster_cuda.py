@@ -1,6 +1,6 @@
 """Cluster (meshlet) intersection for large scenes: the cull K3, the
-streaming visits K6/K7, their plain torch versions, and the intersector
-pair the integrator calls.
+cluster visits K4/K5 (resident) and K6/K7 (streaming), their plain torch
+versions, and the differentiable intersector pair the integrator calls.
 
 The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
 
@@ -10,23 +10,35 @@ The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
   lists of :func:`_order_hits` (torch ops, as ``lax.sort`` on the TPU):
   meta (B0, 2) int32 [trip, overflow], ids (B0, Le) int32, nears (B0, Le)
   f32, cutoff (B0, 1) f32, Le = min(Lmax, K).
-- ``closest_cluster`` is K6 (``_stream_closest_kernel`` :627) and
-  ``any_cluster`` K7 (``_stream_any_kernel`` :750): the listed clusters
-  near to far with early exit, then the phase-2 sweep of all K clusters for
-  overflow rows (``csrc/intersect_cluster.cu``, built by ``nvcc`` for
-  ``sm_90a`` at first use, bound with ``ctypes``).
+- ``closest_resident`` is K4 (``_closest_kernel`` :485) and ``any_resident``
+  K5 (``_any_kernel`` :550); ``closest_cluster`` is K6
+  (``_stream_closest_kernel`` :627) and ``any_cluster`` K7
+  (``_stream_any_kernel`` :750).  Each visits the listed clusters near to
+  far with early exit, then sweeps all K clusters for overflow rows
+  (``csrc/intersect_cluster.cu``, built by ``nvcc`` for ``sm_90a`` at first
+  use, bound with ``ctypes``).  The resident pair reads each visited block
+  straight from global memory (the matrix fits the card's L2 wherever the
+  JAX rule picks it) and votes on the early exit once per 8 visits; the
+  streaming pair stages each block through shared memory.
+- :func:`make_cluster_intersectors` picks the pair by the JAX package's
+  rule (:func:`streams_by_budget`) and exposes it as ``.route``
+  (``"resident"`` or ``"stream"``).
 
-Each wrapper takes its plain torch version only for CPU tensors; for CUDA
-tensors it launches its kernel or raises — there is no fallback.
-``LAUNCHES`` counts kernel launches.  The plain visits need no early exit:
-the cluster results are exact by contract (the lexicographic (t, original
-id) minimum over every hit, ``cluster_pallas.py:43-47``), so a row's listed
-clusters (all K where it overflowed) give the same answer.
+K4/K5 compute the same function as K6/K7, so both pairs share one plain
+torch version each: :func:`closest_cluster_plain` and
+:func:`any_cluster_plain`.  Each wrapper takes its plain version only for
+CPU tensors; for CUDA tensors it launches its kernel or raises — there is
+no fallback.  ``LAUNCHES`` counts kernel launches.  The plain visits need no
+early exit: the cluster results are exact by contract (the lexicographic
+(t, original id) minimum over every hit, ``cluster_pallas.py:43-47``), so a
+row's listed clusters (all K where it overflowed) give the same answer.
 
-The resident kernels K4/K5 (the packed matrix in VMEM on the TPU) are not
-ported: where the JAX rule would pick them (packed matrix within
-``RESIDENT_BUDGET_BYTES``), :func:`make_cluster_intersectors` raises on a
-card unless the caller asks for ``stream=True`` (ROADMAP item 17).
+Gradients (``cluster_pallas.py:1158-1197``): :func:`closest_cluster_diff`
+runs K4 or K6 forward and recomputes the winner's t, u, v and attribute
+row from the original-order (T, 9) triangle rows and (T, 32) attribute
+table in backward (:func:`~chiaroscuro_tpu_torch.ops.intersect_cuda.
+closest_hit`); the packed matrix is built from detached geometry and gets
+no gradient, and occlusion is a discrete decision taken on detached inputs.
 """
 
 from __future__ import annotations
@@ -47,6 +59,7 @@ from chiaroscuro_tpu_torch.ops.intersect_cuda import (
     _check,
     _launch_device,
     _mt_core,
+    closest_hit,
     _prep_attrs,
     _prep_tris,
     row_major_pair,
@@ -55,7 +68,16 @@ from chiaroscuro_tpu_torch.ops.intersect_cuda import (
 
 # Kernel launch counts, by kernel.  Incremented only where a wrapper
 # launches its kernel; the plain versions never count.
-LAUNCHES = {"cull": 0, "closest_cluster": 0, "any_cluster": 0}
+LAUNCHES = {
+    "cull": 0,
+    "closest_resident": 0, "any_resident": 0,     # K4, K5
+    "closest_cluster": 0, "any_cluster": 0,       # K6, K7
+}
+# The two visit routes, by the kernels each launches: (closest, any).
+ROUTES = {
+    "resident": ("closest_resident", "any_resident"),
+    "stream": ("closest_cluster", "any_cluster"),
+}
 
 # Clamp for 1/dir in the slab test: keeps axis-parallel rays finite (no
 # 0 * inf NaNs) while behaving like +-inf for containment.
@@ -163,7 +185,11 @@ def cull(o3, d3, bmin, bmax, Le, tmax=None):
 
     o3, d3: (3, B0, 128) f32; bmin, bmax: (K, 3) f32 boxes; tmax: None or
     (B0, 128) f32 (then a box counts only where near <= tmax).  Returns
-    (meta, ids, nears, cutoff) as in :func:`_order_hits`."""
+    (meta, ids, nears, cutoff) as in :func:`_order_hits`.  The lists only
+    steer the visits, so the inputs are taken detached."""
+    o3, d3 = o3.detach(), d3.detach()
+    if tmax is not None:
+        tmax = tmax.detach()
     device = _launch_device(o3, d3, bmin, bmax)
     B0 = o3.shape[1]
     K = bmin.shape[0]
@@ -185,7 +211,7 @@ def cull(o3, d3, bmin, bmax, Le, tmax=None):
 
 
 # ---------------------------------------------------------------------------
-# K6/K7: the visits.  Plain versions.
+# K4-K7: the visits.  Plain versions, shared by both routes.
 # ---------------------------------------------------------------------------
 
 
@@ -210,9 +236,10 @@ def _tri_chunks(packed, cids):
 
 
 def closest_cluster_plain(meta, ids, nears, cutoff, o3, d3, packed, attrs):
-    """Plain torch K6: same inputs and outputs as :func:`closest_cluster`.
-    ``nears`` and ``cutoff`` only steer the kernel's early exit, which the
-    plain version does without."""
+    """Plain torch K4/K6: same inputs and outputs as
+    :func:`closest_resident` and :func:`closest_cluster`.  ``nears`` and
+    ``cutoff`` only steer the kernels' early exit, which the plain version
+    does without."""
     B0 = o3.shape[1]
     K = packed.shape[0]
     dev = o3.device
@@ -253,7 +280,8 @@ def closest_cluster_plain(meta, ids, nears, cutoff, o3, d3, packed, attrs):
 
 
 def any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed):
-    """Plain torch K7: same inputs and outputs as :func:`any_cluster`."""
+    """Plain torch K5/K7: same inputs and outputs as :func:`any_resident`
+    and :func:`any_cluster`."""
     B0 = o3.shape[1]
     K = packed.shape[0]
     occ = torch.zeros((B0, LANE), dtype=torch.bool, device=o3.device)
@@ -270,7 +298,7 @@ def any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed):
 
 
 # ---------------------------------------------------------------------------
-# K6/K7: build, bind and launch.
+# K4-K7: build, bind and launch.
 # ---------------------------------------------------------------------------
 
 
@@ -281,10 +309,13 @@ def build() -> tuple:
     intersect_cuda.build` does.  A failed build raises."""
     lib, info = build_library("intersect_cluster")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.closest_cluster_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 6
-    lib.closest_cluster_launch.restype = ci
-    lib.any_cluster_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp] * 2
-    lib.any_cluster_launch.restype = ci
+    for route in ("cluster", "resident"):
+        closest = getattr(lib, f"closest_{route}_launch")
+        closest.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 7
+        closest.restype = ci
+        anyf = getattr(lib, f"any_{route}_launch")
+        anyf.argtypes = [vp] * 9 + [ci] * 4 + [vp] * 3
+        anyf.restype = ci
     lib.cluster_error_string.argtypes = [ci]
     lib.cluster_error_string.restype = ctypes.c_char_p
     return lib, info
@@ -314,21 +345,39 @@ def _raise_on(lib, err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def closest_cluster(meta, ids, nears, cutoff, o3, d3, packed, attrs):
-    """K6: closest hit of each planar ray over the row's listed clusters.
+def _visits_out(visits, B0, device):
+    """The optional (B0,) int32 per-row visit-count output; kernel only."""
+    if visits is None:
+        return None
+    if device.type == "cpu":
+        raise ValueError("visit counts are written by the kernels only")
+    _check("visits", visits, (B0,), torch.int32, device)
+    return visits.data_ptr()
 
-    meta/ids/nears/cutoff: the cull's lists (:func:`cull`); o3, d3:
-    (3, B0, 128) f32; packed: (K, 10, M) f32 (:func:`derive_buffers`);
-    attrs: (T, ATTR_K) f32 original-order table.  Returns (t, id, u, v,
-    attrs_out) as K1 does; a miss keeps t = BIG, id 0."""
+
+def _no_grad_inputs(name, *tensors):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise ValueError(
+            f"{name} takes no gradient itself: use closest_cluster_diff (or "
+            "the intersector pair), whose backward recomputes the hit from "
+            "the original-order triangle rows"
+        )
+
+
+def _closest_visit(kernel, meta, ids, nears, cutoff, o3, d3, packed, attrs,
+                   visits):
+    """K4 (kernel ``closest_resident``) or K6 (``closest_cluster``)."""
+    _no_grad_inputs(kernel, o3, d3, packed, attrs)
     device = _launch_device(o3, d3, packed, attrs)
     B0, Le = _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device)
     _check("attrs", attrs, (attrs.shape[0], ATTR_K), torch.float32, device)
+    visits_ptr = _visits_out(visits, B0, device)
     if device.type == "cpu":
         return closest_cluster_plain(meta, ids, nears, cutoff, o3, d3, packed, attrs)
     if packed.data_ptr() % 16 or attrs.data_ptr() % 16:
         raise ValueError("packed and attrs must be 16-byte aligned")
     lib, _ = build()
+    launch = getattr(lib, kernel + "_launch")
     K, _, M = packed.shape
     t = torch.empty((B0, LANE), dtype=torch.float32, device=device)
     tid = torch.empty((B0, LANE), dtype=torch.int32, device=device)
@@ -337,43 +386,101 @@ def closest_cluster(meta, ids, nears, cutoff, o3, d3, packed, attrs):
     am = torch.empty((ATTR_K, B0, LANE), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.closest_cluster_launch(
+        err = launch(
             meta.data_ptr(), ids.data_ptr(), nears.data_ptr(),
             cutoff.data_ptr(), o3.data_ptr(), d3.data_ptr(), packed.data_ptr(),
             attrs.data_ptr(), B0, Le, K, M, t.data_ptr(), tid.data_ptr(),
-            u.data_ptr(), v.data_ptr(), am.data_ptr(), stream,
+            u.data_ptr(), v.data_ptr(), am.data_ptr(), visits_ptr, stream,
         )
-    _raise_on(lib, err, "closest_cluster")
-    LAUNCHES["closest_cluster"] += 1
+    _raise_on(lib, err, kernel)
+    LAUNCHES[kernel] += 1
     return t, tid, u, v, am
 
 
-def any_cluster(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed):
-    """K7: occlusion of each planar ray by a triangle of the row's listed
-    clusters with id != excl at t < tmax.  tmax: (B0, 128) f32; excl:
-    (B0, 128) int32.  Returns (B0, 128) bool."""
+def _any_visit(kernel, meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
+               visits):
+    """K5 (kernel ``any_resident``) or K7 (``any_cluster``)."""
+    o3, d3, tmax = o3.detach(), d3.detach(), tmax.detach()
     device = _launch_device(o3, d3, tmax, packed)
     B0, Le = _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device)
     _check("tmax", tmax, (B0, LANE), torch.float32, device)
     _check("excl", excl, (B0, LANE), torch.int32, device)
+    visits_ptr = _visits_out(visits, B0, device)
     if device.type == "cpu":
         return any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned")
     lib, _ = build()
+    launch = getattr(lib, kernel + "_launch")
     K, _, M = packed.shape
     occ = torch.empty((B0, LANE), dtype=torch.bool, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.any_cluster_launch(
+        err = launch(
             meta.data_ptr(), ids.data_ptr(), nears.data_ptr(),
             cutoff.data_ptr(), o3.data_ptr(), d3.data_ptr(), tmax.data_ptr(),
             excl.data_ptr(), packed.data_ptr(), B0, Le, K, M, occ.data_ptr(),
-            stream,
+            visits_ptr, stream,
         )
-    _raise_on(lib, err, "any_cluster")
-    LAUNCHES["any_cluster"] += 1
+    _raise_on(lib, err, kernel)
+    LAUNCHES[kernel] += 1
     return occ
+
+
+def closest_resident(meta, ids, nears, cutoff, o3, d3, packed, attrs,
+                     visits=None):
+    """K4: closest hit of each planar ray over the row's listed clusters,
+    each visited block read straight from global memory (L2).
+
+    meta/ids/nears/cutoff: the cull's lists (:func:`cull`); o3, d3:
+    (3, B0, 128) f32; packed: (K, 10, M) f32 (:func:`derive_buffers`);
+    attrs: (T, ATTR_K) f32 original-order table; visits: None or a (B0,)
+    int32 tensor that receives each row's cluster visit count (kernel
+    only).  Returns (t, id, u, v, attrs_out) as K1 does; a miss keeps
+    t = BIG, id 0.  Takes no gradient: see :func:`closest_cluster_diff`."""
+    return _closest_visit("closest_resident", meta, ids, nears, cutoff, o3,
+                          d3, packed, attrs, visits)
+
+
+def closest_cluster(meta, ids, nears, cutoff, o3, d3, packed, attrs,
+                    visits=None):
+    """K6: :func:`closest_resident`'s function with each visited block
+    staged through shared memory (``cp.async`` double buffer)."""
+    return _closest_visit("closest_cluster", meta, ids, nears, cutoff, o3,
+                          d3, packed, attrs, visits)
+
+
+def any_resident(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
+                 visits=None):
+    """K5: occlusion of each planar ray by a triangle of the row's listed
+    clusters with id != excl at t < tmax, blocks read straight from global
+    memory.  tmax: (B0, 128) f32; excl: (B0, 128) int32; visits as in
+    :func:`closest_resident`.  Returns (B0, 128) bool; the inputs are taken
+    detached."""
+    return _any_visit("any_resident", meta, ids, nears, cutoff, o3, d3,
+                      tmax, excl, packed, visits)
+
+
+def any_cluster(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
+                visits=None):
+    """K7: :func:`any_resident`'s function with each visited block staged
+    through shared memory."""
+    return _any_visit("any_cluster", meta, ids, nears, cutoff, o3, d3, tmax,
+                      excl, packed, visits)
+
+
+def closest_cluster_diff(lists, o3, d3, tri_orig, attrs, packed, route):
+    """Differentiable cluster closest hit (``cluster_pallas.py:1165-1197``):
+    K4 (``route="resident"``) or K6 (``"stream"``) forward over the cull's
+    ``lists``; backward recomputes the winner from ``tri_orig`` (T, 9) and
+    ``attrs`` (T, ATTR_K), both in original triangle order, and gives
+    ``packed`` and the lists no gradient."""
+    kernel = ROUTES[route][0]
+
+    def fwd(o3, d3, _tri_orig, attrs):
+        return _closest_visit(kernel, *lists, o3, d3, packed, attrs, None)
+
+    return closest_hit(fwd, o3, d3, tri_orig, attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -381,16 +488,24 @@ def any_cluster(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed):
 # ---------------------------------------------------------------------------
 
 
-def derive_buffers(scene, clusters: ClusterArrays):
+def derive_buffers(scene, clusters: ClusterArrays, tri_orig=None):
     """(packed (K, 10, M) f32, attrs (T, ATTR_K) f32) on the scene's device
     (``cluster_pallas.py:1105-1136``): each cluster's triangles field-major,
     v0|e1|e2 gathered from the scene in cluster order and the original id
-    as int32 bits in row 9; padded slots zero with id INT32_MAX."""
+    as int32 bits in row 9; padded slots zero with id INT32_MAX.
+
+    ``tri_orig`` is the scene's original-order (T, 9) triangle rows where
+    the caller has them (``_prep_tris``), else they are made here.
+    ``packed`` is built from them detached: the kernels read it, and
+    gradients go through the original-order ``attrs`` (not detached) and
+    triangle rows instead (:func:`closest_cluster_diff`)."""
     dev = scene.device
     K, M, T = clusters.K, clusters.M, scene.n_tris
     oid = torch.from_numpy(np.asarray(clusters.orig_id, np.int32)).to(dev)
     real = oid < T
-    tri = _prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    if tri_orig is None:
+        tri_orig = _prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    tri = tri_orig.detach()
     tri_perm = torch.where(real[:, None], tri[torch.clamp_max(oid, T - 1).long()], 0.0)
     geo = torch.cat([tri_perm, oid.view(torch.float32)[:, None]], dim=1)
     packed = geo.reshape(K, M, GEO_ROWS).transpose(1, 2).contiguous()
@@ -416,18 +531,24 @@ def make_cluster_intersectors(
     (without ``live`` hints: parked rows cull to trip 0).
 
     The meshlet decomposition is built on the host from the scene's
-    geometry unless ``clusters`` is given (e.g. the JAX package's
-    ``build_clusters`` output, read out as numpy).  ``Lmax`` is the list
-    width (default 1536).  ``stream=None`` applies the JAX package's rule
-    (streaming when the packed matrix exceeds 72 MiB); on a card a scene
-    under that rule raises, since the resident K4/K5 are not ported.
+    geometry unless ``clusters`` is given (a prebuilt ``ClusterArrays``,
+    e.g. to rebuild the pair on a parameter-substituted scene without
+    re-clustering, or the JAX package's ``build_clusters`` output read out
+    as numpy).  ``Lmax`` is the list width (default 1536).  ``stream=None``
+    applies the JAX package's rule (:func:`streams_by_budget`): the
+    resident K4/K5 while the packed matrix is within 72 MiB, else the
+    streaming K6/K7; ``stream=True``/``False`` forces a route on any scene.
 
-    The pair carries ``prefers_compaction`` / ``prefers_ray_sort`` (K >=
-    1024), which the renderer and integrator read."""
+    The closest query is differentiable with respect to the rays and the
+    scene's fields (:func:`closest_cluster_diff`); occlusion is not.  The
+    pair carries ``route`` (``"resident"`` or ``"stream"``) and
+    ``prefers_compaction`` / ``prefers_ray_sort`` (K >= 1024), which the
+    renderer and integrator read."""
     if clusters is None:
         clusters = build_clusters(
-            scene.tri_v0.cpu().numpy(), scene.tri_v1.cpu().numpy(),
-            scene.tri_v2.cpu().numpy(), M,
+            scene.tri_v0.detach().cpu().numpy(),
+            scene.tri_v1.detach().cpu().numpy(),
+            scene.tri_v2.detach().cpu().numpy(), M,
         )
     M, K = clusters.M, clusters.K
     Le = min(DEFAULT_LMAX if Lmax is None else Lmax, K)
@@ -435,34 +556,32 @@ def make_cluster_intersectors(
         raise ValueError("cluster intersector supports < 2^24 triangles")
     if stream is None:
         stream = streams_by_budget(K, M)
-    if not stream and scene.device.type == "cuda":
-        raise NotImplementedError(
-            f"the packed cluster matrix of {K} clusters of {M} "
-            f"({K * M * PACK_W * 4 / 2**20:.1f} MiB) fits the 72 MiB residency "
-            "budget, which selects the resident kernels K4/K5 "
-            "(cluster_pallas.py _closest_kernel/_any_kernel); they are not "
-            "ported yet (ROADMAP item 17). Pass stream=True for the "
-            "streaming K6/K7."
-        )
+    route = "stream" if stream else "resident"
     dev = scene.device
     bmin = torch.from_numpy(np.asarray(clusters.bbox_min, np.float32)).to(dev)
     bmax = torch.from_numpy(np.asarray(clusters.bbox_max, np.float32)).to(dev)
-    packed, attrs = derive_buffers(scene, clusters)
+    tri_orig = _prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    packed, attrs = derive_buffers(scene, clusters, tri_orig)
 
     def closest_planar(o3, d3) -> ClosestHit:
         o3, d3 = o3.contiguous(), d3.contiguous()
         lists = cull(o3, d3, bmin, bmax, Le)
-        t, tid, u, v, am = closest_cluster(*lists, o3, d3, packed, attrs)
+        t, tid, u, v, am = closest_cluster_diff(
+            lists, o3, d3, tri_orig, attrs, packed, route
+        )
         return ClosestHit(t < BIG, t, tid, u, v, unpack_attrs_planar(am))
 
     def any_planar(o3, d3, tmax, excl):
-        o3, d3, tmax = o3.contiguous(), d3.contiguous(), tmax.contiguous()
+        o3, d3 = o3.detach().contiguous(), d3.detach().contiguous()
+        tmax = tmax.detach().contiguous()
         lists = cull(o3, d3, bmin, bmax, Le, tmax=tmax)
-        return any_cluster(
-            *lists, o3, d3, tmax, excl.to(torch.int32).contiguous(), packed
+        return _any_visit(
+            ROUTES[route][1], *lists, o3, d3, tmax,
+            excl.to(torch.int32).contiguous(), packed, None,
         )
 
     closest_fn, any_fn = row_major_pair(closest_planar, any_planar)
+    closest_fn.route = any_fn.route = route
     closest_fn.prefers_compaction = K >= COMPACT_MIN_K
     closest_fn.prefers_ray_sort = K >= COMPACT_MIN_K
     return closest_fn, any_fn

@@ -21,6 +21,15 @@ u = v = 0, attributes 0; occluded = False) in the kernel and in its plain
 version alike, so the two agree on every row.  (The TPU kernels skip only
 8-row tiles with no live row; the integrator consumes no dead row either
 way.)
+
+Gradients (``intersect_pallas.py:430-504``, ``_closest_diff`` and its VJP):
+``closest_dense`` is differentiable with respect to the rays, the (T, 9)
+triangle rows and the (T, 32) attribute table through :func:`closest_hit`,
+a ``torch.autograd.Function`` whose forward is the kernel and whose backward
+recomputes the winner's t, u, v and attribute row with torch ops.  The JAX
+package has no backward kernel either; its TPU-only one-hot backward fetch
+(``_bwd_fetch``, an MXU workaround for slow gathers) is a plain gather here.
+Occlusion is a discrete decision: ``any_dense`` takes detached inputs.
 """
 
 from __future__ import annotations
@@ -272,13 +281,7 @@ def _live_rows(live, B0, device):
 
 
 def _launch_device(*tensors) -> torch.device:
-    """The device the wrapper runs on; raises where a kernel input requires
-    grad (the autograd Function is ROADMAP item 7)."""
-    if any(x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "the intersection kernels have no backward yet (ROADMAP item "
-            "7); call them under torch.no_grad() on detached inputs"
-        )
+    """The device the wrapper runs on."""
     device = tensors[0].device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
@@ -297,7 +300,16 @@ def closest_dense(live, o3, d3, tri_rows, attrs):
     live: None or (B0,)/(B0, 1) row flags; o3, d3: (3, B0, 128) f32;
     tri_rows: (T, 9) f32 (:func:`_prep_tris`); attrs: (T, ATTR_K) f32
     (:func:`_prep_attrs`).  Returns (t, id, u, v, attrs_out): (B0, 128)
-    f32/int32/f32/f32 and (ATTR_K, B0, 128) f32; a miss keeps t = BIG."""
+    f32/int32/f32/f32 and (ATTR_K, B0, 128) f32; a miss keeps t = BIG.
+    Differentiable with respect to o3, d3, tri_rows and attrs
+    (:func:`closest_hit`)."""
+    return closest_hit(functools.partial(_closest_dense_launch, live),
+                       o3, d3, tri_rows, attrs)
+
+
+def _closest_dense_launch(live, o3, d3, tri_rows, attrs):
+    """K1 on detached inputs: the kernel, or its plain version on the
+    CPU."""
     device = _launch_device(o3, d3, tri_rows, attrs)
     B0 = o3.shape[1]
     T = tri_rows.shape[0]
@@ -331,7 +343,9 @@ def closest_dense(live, o3, d3, tri_rows, attrs):
 def any_dense(live, o3, d3, tmax, excl, tri_rows):
     """K2: occlusion of each planar ray by any triangle with id != excl at
     t < tmax.  tmax: (B0, 128) f32; excl: (B0, 128) int32.  Returns
-    (B0, 128) bool."""
+    (B0, 128) bool.  Occlusion is a discrete decision: the inputs are
+    taken detached (``intersect_pallas.py:586-603``)."""
+    o3, d3, tmax, tri_rows = (x.detach() for x in (o3, d3, tmax, tri_rows))
     device = _launch_device(o3, d3, tmax, tri_rows)
     B0 = o3.shape[1]
     T = tri_rows.shape[0]
@@ -355,6 +369,73 @@ def any_dense(live, o3, d3, tmax, excl, tri_rows):
     _raise_on(lib, err, "any_dense")
     LAUNCHES["any"] += 1
     return occ
+
+
+# ---------------------------------------------------------------------------
+# The closest-hit gradient.
+# ---------------------------------------------------------------------------
+
+
+def _recompute_hit(o3, d3, tri_rows, attrs, tid):
+    """t, u, v and the attribute column of the triangle ``tid`` for each
+    planar ray, in ``_mt_core``'s operand order: what the forward computed
+    for a hit, as differentiable torch ops (``intersect_pallas.py:485-495``).
+    tri_rows (T, 9) and attrs (T, ATTR_K) are in original triangle order."""
+    idx = tid.long()
+    tri = tri_rows[idx].permute(2, 0, 1)                    # (9, B0, 128)
+    _, t, u, v = _mt_core(
+        (o3[0], o3[1], o3[2]), (d3[0], d3[1], d3[2]),
+        (tri[0], tri[1], tri[2]), (tri[3], tri[4], tri[5]),
+        (tri[6], tri[7], tri[8]),
+    )
+    return t, u, v, attrs[idx].permute(2, 0, 1)             # (ATTR_K, B0, 128)
+
+
+class _ClosestHit(torch.autograd.Function):
+    """A closest-hit query whose forward is a kernel (or its plain
+    version) and whose backward is the recompute of ``_closest_diff_bwd``
+    (``intersect_pallas.py:480-501``) and of the cluster ``_closest_bwd``
+    (``cluster_pallas.py:1174-1195``): the hit triangle is fixed (ids are
+    detached), and the cotangents of missed rays are masked to zero."""
+
+    @staticmethod
+    def forward(ctx, fwd, o3, d3, tri_rows, attrs):
+        out = fwd(o3.detach(), d3.detach(), tri_rows.detach(), attrs.detach())
+        t, tid = out[0], out[1]
+        ctx.save_for_backward(o3, d3, tri_rows, attrs, tid, t < BIG)
+        ctx.mark_non_differentiable(tid)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct_t, _ct_tid, ct_u, ct_v, ct_am):
+        o3, d3, tri_rows, attrs, tid, hit = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        h = hit.to(torch.float32)
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip((o3, d3, tri_rows, attrs), need)]
+            outs = _recompute_hit(*xs, tid)
+            cts = (ct_t * h, ct_u * h, ct_v * h, ct_am * h[None])
+            pairs = [(y, c) for y, c in zip(outs, cts) if y.requires_grad]
+            wanted = [x for x, n in zip(xs, need) if n]
+            grads = iter(torch.autograd.grad(
+                [y for y, _ in pairs], wanted, [c for _, c in pairs],
+                allow_unused=True,
+            ) if pairs else [None] * len(wanted))
+        return (None, *(next(grads) if n else None for n in need))
+
+
+def closest_hit(fwd, o3, d3, tri_rows, attrs):
+    """``fwd(o3, d3, tri_rows, attrs) -> (t, id, u, v, attrs_out)``, made
+    differentiable with respect to o3, d3, tri_rows and attrs where any of
+    them requires grad.  ``fwd`` runs on detached inputs (a kernel launch
+    or its plain version) and must take the original-order (T, 9) rows and
+    (T, ATTR_K) table whose rows its ids index."""
+    if torch.is_grad_enabled() and any(
+        x.requires_grad for x in (o3, d3, tri_rows, attrs)
+    ):
+        return _ClosestHit.apply(fwd, o3, d3, tri_rows, attrs)
+    return fwd(o3, d3, tri_rows, attrs)
 
 
 def _rows_to_planar(rows):
@@ -410,6 +491,10 @@ def make_dense_intersectors(scene):
     speak the row-major ``(R, 3)`` oracle interface; each carries
     ``.planar_fn`` speaking the planar ``(3, B0, 128)`` layout, which the
     integrator calls with a ``live`` (B0, 1) row hint (``.accepts_live``).
+
+    The triangle rows and the attribute table are derived from the scene's
+    fields without detaching them, so a pair made from a scene whose fields
+    require grad (``SceneTensors.replace``) carries gradients to them.
     """
     tri_rows = _prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
     attrs = _prep_attrs(scene)

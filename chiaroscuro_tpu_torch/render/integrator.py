@@ -28,6 +28,16 @@ dense ones with ``live`` row hints; row-major ones (the brute oracle) get
 explicit conversions.  Bounce compaction and the cluster path's spatial ray
 sort (``compact=True``) are pure lane permutations.  Not ported yet: the
 Phong extension (ROADMAP item 11).
+
+Autograd: radiance is differentiable with respect to the scene's float
+fields (kd, ke, vertex positions, normals, texcoords, texels, light areas)
+through the closest-hit queries' ``autograd.Function``s and plain torch
+ops.  As in the JAX package, hit ids, light picks, Russian roulette and
+occlusion are discrete and carry no gradient, and the world bounds (only
+parking and the sort keys read them) are detached where JAX stops their
+gradient.  Every write into a tensor is out of place or lands in an integer
+or bool tensor (the per-bounce counts, the shadow scatter), and no
+``.item()`` steers the math.
 """
 
 from __future__ import annotations
@@ -205,7 +215,7 @@ def _sorted_any(any_planar, o, d, tmax, excl, li, hit, wmin, wext):
         o[0].reshape(-1), o[1].reshape(-1), o[2].reshape(-1),
         d[0].reshape(-1), d[1].reshape(-1), d[2].reshape(-1),
         tmax.reshape(-1), _f32_bits(excl),
-    ])[:, sp]                                       # one (8, R) gather
+    ]).detach()[:, sp]                              # one (8, R) gather
     occ_s = any_planar(
         sm[0:3].reshape((3,) + B), sm[3:6].reshape((3,) + B),
         sm[6].reshape(B), sm[7].view(torch.int32).reshape(B),
@@ -284,9 +294,10 @@ def trace_paths_planar(
     if not spatial_sort and R_flat % COMPACT_SEG_LANES == 0:
         seg = COMPACT_SEG_LANES
     n_seg = R_flat // seg
-    # Morton-cell bounds of the spatial key (ordering-only metadata).
-    wmin_s = scene.world_min
-    wext_s = torch.clamp_min(scene.world_max - wmin_s, 1e-6)
+    # Morton-cell bounds of the spatial key (ordering-only metadata,
+    # detached as JAX's integrator.py:305-307 stops their gradient).
+    wmin_s = scene.world_min.detach()
+    wext_s = torch.clamp_min(scene.world_max.detach() - wmin_s, 1e-6)
     bg = background[:, None, None]  # (3, 1, 1)
     textured = scene.tex_data.shape[0] > 1
     closest_planar = getattr(closest_fn, "planar_fn", None)
@@ -298,8 +309,9 @@ def trace_paths_planar(
     # Dead-lane parking: an origin beyond every scene box along +x, pointing
     # +x.  Used for non-hit lanes' shadow rays and terminated lanes' bounce
     # rays; every radiance/throughput update is masked on `active`/`hit`, so
-    # intersector outputs for parked lanes are never consumed.
-    wmax, wmin = scene.world_max, scene.world_min
+    # intersector outputs for parked lanes are never consumed (bounds
+    # detached, as integrator.py:614-615 of the JAX package).
+    wmax, wmin = scene.world_max.detach(), scene.world_min.detach()
     park_x = wmax[0] + (wmax[0] - wmin[0]) + 1.0
     zero = torch.zeros(B, dtype=torch.float32, device=dev)
     park_o = torch.stack([park_x.expand(B), zero, zero])
@@ -496,10 +508,12 @@ def trace_paths_planar(
         active = new_active
 
     if compact:
-        # Back to pixel order: lane i holds the pixel perm[i].
-        out = torch.empty_like(radiance.reshape(3, -1))
-        out[:, perm.reshape(-1).long()] = radiance.reshape(3, -1)
-        radiance = out.reshape((3,) + B)
+        # Back to pixel order: lane i holds the pixel perm[i] (an out-of-place
+        # scatter, differentiable in radiance).
+        flat = radiance.reshape(3, -1)
+        radiance = flat.new_zeros(flat.shape).index_copy(
+            1, perm.reshape(-1).long(), flat
+        ).reshape((3,) + B)
     if with_stats:
         return radiance, stats
     return radiance

@@ -13,9 +13,15 @@ yview)`` with progressive layer averaging on an unchanged camera
 - the reference's ``lastUp == lastUp`` self-comparison bug (up changes never
   reset accumulation, ``rayTracer.cpp:24``) is reproduced for parity.
 
-The forward render runs under ``torch.no_grad()``; gradients (ROADMAP item
-7) and ``save_state``/``load_state``/``profile_phases`` (item 12) are not
-ported yet.
+``render_samples`` and ``render_image`` are differentiable with respect to
+the scene's fields: substitute leaf tensors that require grad with
+``SceneTensors.replace`` and build the intersectors from that scene
+(``make_intersectors``; the cluster path takes prebuilt ``clusters``), as
+``bench.py``'s losses do with ``dataclasses.replace``.
+``render_samples(checkpoint=True)`` is the counterpart of ``remat=True``.
+:class:`Renderer` serves frames under ``torch.no_grad()``, so its memory
+does not depend on autograd.  ``save_state``/``load_state``/
+``profile_phases`` (ROADMAP item 12) and ``spp_batch`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
 from chiaroscuro_tpu_torch.geometry import planar as P
@@ -39,7 +46,6 @@ from chiaroscuro_tpu_torch.scene.config import RenderConfig
 from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
 
 
-@torch.no_grad()
 def render_samples(
     scene: SceneTensors,
     eye,
@@ -59,6 +65,7 @@ def render_samples(
     any_fn,
     with_stats: bool = False,
     compact: Optional[bool] = None,
+    checkpoint: bool = False,
 ):
     """Mean radiance over samples [sample_start, sample_start+n_samples) for
     each pixel of the tile.  Returns (R, 3) float32 (and the (depth, 2)
@@ -72,6 +79,14 @@ def render_samples(
     cluster path at K >= 1024): bounce compaction frees work only where
     dead rows cut intersector cost.  Radiance is bitwise the same either
     way (``trace_paths_planar``).
+
+    Differentiable with respect to the scene's fields and the intersectors'
+    buffers derived from them (see the module docstring).
+    ``checkpoint=True`` runs each sample under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, the
+    counterpart of the JAX ``remat=True``: backward then keeps only each
+    sample's inputs and recomputes its bounces, so memory is O(pixels)
+    rather than O(pixels x spp); the gradients are the same.
     """
     if compact is None:
         compact = bool(getattr(closest_fn, "prefers_compaction", False))
@@ -98,16 +113,24 @@ def render_samples(
     eye_t = torch.as_tensor(np.asarray(eye, np.float32), device=dev)
     origins = eye_t[:, None, None].expand((3,) + B).contiguous()
 
-    total = torch.zeros((3,) + B, dtype=torch.float32, device=dev)
-    stats = torch.zeros((depth, 2), dtype=torch.int64, device=dev)
-    for s in range(sample_start, sample_start + n_samples):
+    def one_sample(s):
         k0, k1 = prng.base_key(seed, pixel_idx, s)
         jx, jy = prng.aa_jitter_pair(k0, k1)
         dirs = primary_ray_dirs_planar(left_upper, dx, dy, pxf, pyf, jx, jy)
-        radiance, st = trace_paths_planar(
+        return trace_paths_planar(
             scene, origins, dirs, k0, k1, depth, background,
             closest_fn, any_fn, with_stats=True, compact=compact,
         )
+
+    total = torch.zeros((3,) + B, dtype=torch.float32, device=dev)
+    stats = torch.zeros((depth, 2), dtype=torch.int64, device=dev)
+    for s in range(sample_start, sample_start + n_samples):
+        if checkpoint:
+            radiance, st = torch.utils.checkpoint.checkpoint(
+                one_sample, s, use_reentrant=False
+            )
+        else:
+            radiance, st = one_sample(s)
         total = total + radiance
         stats = stats + st
     img = P.to_rows(total)[:R] * (1.0 / n_samples)
@@ -203,8 +226,10 @@ class Renderer:
         self._last_cam: Optional[Tuple] = None
         self.last_stats: Optional[dict] = None
 
+    @torch.no_grad()
     def ray_trace(self, eye=None, center=None, up=None, yview=None) -> np.ndarray:
-        """One render pass; same-camera passes average progressively."""
+        """One render pass; same-camera passes average progressively (under
+        ``torch.no_grad()``: serving builds no autograd graph)."""
         cfg = self.cfg
         eye = tuple(np.asarray(eye if eye is not None else cfg.vp, np.float32))
         center = tuple(np.asarray(center if center is not None else cfg.la, np.float32))

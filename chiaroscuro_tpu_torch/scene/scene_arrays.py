@@ -12,6 +12,13 @@ fields.
 - Per-triangle ``normal`` is the *mean of the three vertex normals, not
   re-normalized*, exactly as the reference stores it (``src/kdtree.cpp:58-60``);
   the integrator's cosine terms use it raw.
+
+Differentiable parameters: ``scene.replace(kd=kd, ...)`` returns the scene
+with the given data fields substituted (the counterpart of
+``dataclasses.replace(scene, **params)`` on the JAX ``SceneArrays``), and
+:func:`params_from_numpy` turns a numpy parameter dict into leaf tensors
+that require grad.  Intersectors built from the substituted scene carry the
+gradients (``accel/dispatch.py``).
 """
 
 from __future__ import annotations
@@ -91,6 +98,25 @@ class SceneTensors:
     def device(self) -> torch.device:
         return self.tri_v0.device
 
+    def replace(self, **fields: torch.Tensor) -> "SceneTensors":
+        """This scene with the given data fields substituted, e.g. leaf
+        tensors that require grad: ``scene.replace(kd=kd, ke=ke)``.  Each
+        substitute must be a tensor of the field's shape, dtype and device,
+        so the static metadata (triangle and light counts) stays true;
+        nothing is copied or detached."""
+        for name, value in fields.items():
+            if name not in DATA_FIELDS:
+                raise ValueError(f"{name!r} is not a data field of SceneTensors")
+            old = getattr(self, name)
+            if not isinstance(value, torch.Tensor) or (
+                value.shape, value.dtype, value.device
+            ) != (old.shape, old.dtype, old.device):
+                raise ValueError(
+                    f"{name} must be a {old.dtype} tensor of shape "
+                    f"{tuple(old.shape)} on {old.device}"
+                )
+        return dataclasses.replace(self, **fields)
+
 
 def triangle_areas(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
     """0.5 * |cross(v1-v0, v2-v0)| (reference ``kdtree.cpp:72-77``)."""
@@ -108,6 +134,22 @@ def scene_tensors_from_numpy(
         for k in DATA_FIELDS
     }
     return SceneTensors(**data, **{k: meta[k] for k in META_FIELDS})
+
+
+def params_from_numpy(
+    params: Mapping[str, np.ndarray], device
+) -> Dict[str, torch.Tensor]:
+    """Leaf tensors on ``device`` from a numpy parameter dict keyed by data
+    fields (e.g. the JAX parameters ``{"kd": ..., "ke": ..., "tri_v0": ...,
+    "tex_data": ...}`` read out as numpy), each requiring grad, ready for
+    :meth:`SceneTensors.replace`."""
+    out = {}
+    for name, value in params.items():
+        if name not in DATA_FIELDS:
+            raise ValueError(f"{name!r} is not a data field of SceneTensors")
+        t = torch.from_numpy(np.array(value)).to(device)
+        out[name] = t.requires_grad_(t.is_floating_point())
+    return out
 
 
 def build_scene_tensors(

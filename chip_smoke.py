@@ -8,41 +8,72 @@ raises, exits non-zero and prints no result line.
 
 1. Device and build: the card's name and power limit (nvidia-smi), torch's
    device name and count.  The CUDA sources (``csrc/intersect_dense.cu``
-   K1/K2, ``csrc/intersect_cluster.cu`` K6/K7) build in parallel, one nvcc
+   K1/K2, ``csrc/intersect_cluster.cu`` K4-K7) build in parallel, one nvcc
    each, while the Triton cull K3 (``ops/cull_triton.py``) compiles; build
    seconds, registers, shared memory and spills are printed.
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
    Cornell (T = 36) and a seeded random soup (T = 4,096), B0 = 4,608 rows
    (one 768x768 wavefront) with a third of the rows dead: bitwise equal.
-2b. Cluster kernels vs plain at the full atrium (481,208 triangles,
-   K = 3,760 clusters of 128, streaming): the primary wavefront of the
-   1280x720 ``ATRIUM_CAMERA`` frame (B0 = 7,200), one cosine-sampled bounce
-   wavefront from its hits and the NEE shadow wavefront, each sorted as the
-   integrator sorts it on this path.  K3 must equal its plain version
+2b. Streaming cluster kernels vs plain at the full atrium (481,208
+   triangles, K = 3,760 clusters of 128, streaming): the primary wavefront
+   of the 1280x720 ``ATRIUM_CAMERA`` frame (B0 = 7,200), one cosine-sampled
+   bounce wavefront from its hits and the NEE shadow wavefront, each sorted
+   as the integrator sorts it on this path.  K3 must equal its plain version
    exactly on every row (closest and shadow queries); K6/K7 must be bitwise
    equal to theirs on a seeded sample of rows plus every row that overflowed
-   its list.  The same checks then run on every row of atrium(2_200,
-   seed=5) at M = 32 with lists short enough to overflow.
+   its list.
+2c. Resident cluster kernels at Sponza scale (``synthetic:atrium:262144``,
+   261,396 triangles, K = 2,043, resident by the JAX rule): the same four
+   wavefronts of its 1280x720 frame.  K3 exact on every row; K4/K5 bitwise
+   equal to the plain versions on a seeded row sample plus every overflow
+   row, and bitwise equal to K6/K7 on every row; per-row visit counts.  The
+   same checks (every row) on atrium(2_200, seed=5) at M = 32 with 32-wide
+   lists, most of whose rows overflow.
 3. Cornell render: the CLI's batch render of ``scenes/cornell.rtc`` at its
-   768x768 and k 6, 16 spp, into an EXR in a temporary directory that is
-   read back; finite, non-trivial, one K1 and one K2 launch per sample x
-   bounce.  A 128x128, 4 spp, k 6 render on the card is held against the
-   same render on the CPU (the plain versions).
-3b. Atrium render: the CLI renders ``synthetic:atrium`` at 1280x720, 1 spp,
-   k 3 with ``intersector auto`` and the ATRIUM_CAMERA view into an EXR that
-   is read back: finite and lit (median over 4x4-pixel block means of the
-   per-pixel max > 1e-3), and auto must have taken the cluster path
-   (2 K3, 1 K6 and 1 K7 launch per sample x bounce, no dense launch).  Then
-   atrium(2_200) at 160x90, 2 spp, k 2 through ``intersector cluster`` on
-   the card is held against the CPU render, and the card's compacted render
-   (spatial sort forced on) must be bitwise equal to its uncompacted one.
+   768x768 and k 6, at RENDER_SPP samples, into an EXR in a temporary
+   directory that is read back; finite, non-trivial, one K1 and one K2
+   launch per sample x bounce.  A 128x128, 4 spp, k 6 render on the card is
+   held against the same render on the CPU (the plain versions).
+3b. Atrium render: the CLI renders ``synthetic:atrium`` (481k, streaming) at
+   1280x720, 1 spp, k 3 with ``intersector auto`` and the ATRIUM_CAMERA view
+   into an EXR that is read back: finite and lit (median over 4x4-pixel
+   block means of the per-pixel max > 1e-3), and route ``stream`` (2 K3, 1
+   K6 and 1 K7 launch per sample x bounce, no resident or dense launch).
+   Then atrium(2_200) at 160x90, 2 spp, k 2 through ``intersector
+   cluster`` (resident by the rule, K4/K5) and again with ``stream=True``
+   (K6/K7) on the card, each held against the CPU render, and the card's
+   compacted render (spatial sort forced on) must be bitwise equal to its
+   uncompacted one.  Each atrium CLI render is followed by its set-up
+   seconds apart from its render, cold and warm ms per frame, useful Mray/s
+   and peak device memory (with what was already held when it began: each
+   earlier phase lets its scenes go first), and is then let go.
+3c. Mid-size renders through ``intersector auto``: ``synthetic:atrium:262144``
+   at 1280x720, 1 spp, k 3 (route ``resident``: 6 K3, 3 K4, 3 K5, no K6/K7
+   and no dense launch; compaction on) and ``synthetic:atrium:19000`` at
+   1024x1024, 1 spp, k 3 (the JAX bench's nanosuit shape; K = 148, no
+   compaction), each with a torch.profiler breakdown of one warm frame.
 4. Timings (CUDA events, with the card's name and power limit): every
-   kernel vs its plain version in us per launch, the atrium frame's set-up
-   seconds apart from its render, ms per frame, useful Mray/s and peak
-   device memory.
+   kernel vs its plain version in us per launch, K4/K5 beside K6/K7 on the
+   same lists with visits per launch, and each kernel's bound.
+5. Gradients (``render_samples`` + ``backward``, the intersectors rebuilt on
+   the parameter-substituted scene): (i) the card's value and gradients of
+   the mean image w.r.t. kd, ke (and tri_v0 on Cornell, tex_data on the
+   atrium) against the CPU's, on Cornell 64x64 x 4 spp x k 3 (K1) and
+   atrium(2_200) 64x36 x 2 spp x k 2 through K4 and through K6;
+   (ii) full width: fwd+bwd w.r.t. (kd, ke) on the 262k atrium at
+   1280x720 x 1 spp x k 3 with ``checkpoint=True`` — finite, the lights'
+   ke gradients non-zero; (iii) Cornell 512x512 x 16 spp x k 3 fwd+bwd
+   through K1 (the JAX bench's 500 spp cut to 16).  ms and peak device
+   memory are printed, and torch.profiler breakdowns of one 262k fwd+bwd and
+   of a 2-spp Cornell 512x512 fwd+bwd.
 
-The line before the last is a JSON object of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object of the kernels: for each, the
+launches of the main-path CLI runs (counts set to 0 before each run and read
+after it, summed over the runs), its largest |kernel - plain|, its time and
+its plain version's on the stated inputs, and the bound: the larger of the
+FP32 operations those inputs need (visits counted per row; occlusion lanes
+tested only up to their first blocker) over the card's unfused FP32 rate and the bytes read and written once over its memory rate.
+The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -64,9 +95,28 @@ RENDER_SPP = 16
 RENDER_K = 6
 ATRIUM_RES = (1280, 720)   # the bench's sponza-scale headline frame
 ATRIUM_K = 3
-ROW_SAMPLE = 256           # seeded rows for the plain K6/K7 comparisons
+MID_TRIS = 262_144         # synthetic:atrium:262144, resident by the JAX rule
+NANO_TRIS = 19_000         # synthetic:atrium:19000, the nanosuit scale
+ROW_SAMPLE = 256           # seeded rows for the plain visit comparisons
 SMALL_LMAX = 32            # lists short enough that most atrium(2_200) rows overflow
 PIXEL_ORDER_LMAX = 512     # list width for the pixel-order bounce block
+
+# Bounds (H100 SXM peak rates).  With
+# -fmad=false every add and multiply is its own instruction, so the FP32
+# rate is half the 67 TFLOP/s that counts a fused multiply-add as two.
+PEAK_FP32_UNFUSED = 33.5e12    # FP32 operations/s
+PEAK_BYTES = 3.35e12           # device memory bytes/s
+# FP32 operations of one Moller-Trumbore test (csrc/mt_core.cuh mt_hit):
+# p 9, a 5, |a| test 2, f 2, s 3, u 6, q 9, v 6, t 6, acceptance 6.
+MT_OPS = 54
+# FP32 operations of one (lane, box) slab test (ops/cull_triton.py): per
+# axis 2 sub, 2 mul, min, max (18); near/far across axes 4; hit 3; tmax 1;
+# max(near, 0), select, min-reduce 3.
+CULL_OPS = 29
+
+KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
+              "closest_resident": "K4", "any_resident": "K5",
+              "closest_cluster": "K6", "any_cluster": "K7"}
 
 
 def card_line() -> str:
@@ -89,6 +139,13 @@ def max_err(a, b):
     finite = torch.isfinite(a.double()) & torch.isfinite(b.double())
     d = (a.double() - b.double()).abs()[finite]
     return float(d.max()) if d.numel() else 0.0
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time for ``ops`` FP32 operations and
+    ``nbytes`` bytes moved once."""
+    t_ops, t_bytes = ops / PEAK_FP32_UNFUSED, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def make_queries(rng, lo, hi, n_tris, dev):
@@ -161,6 +218,38 @@ def compare_kernels(ic, name, tri_rows, attrs, q):
     return err
 
 
+def dense_bounds(ic, tri_rows, q):
+    """Bounds of K1/K2 on the phase-2 queries: MT_OPS per (live lane,
+    triangle) test for K1; for K2 the tests up to each live lane's first
+    blocker in id order (it stops there).  Bytes: rays, limits, the
+    triangle rows and the attribute rows of the distinct hit triangles
+    read once, the outputs written once."""
+    T = tri_rows.shape[0]
+    live = q["live"].bool()[:, None].expand(B0, 128).reshape(-1)
+    R = B0 * 128
+    n_live = int(live.sum())
+    t, tid, *_ = ic.closest_dense(q["live"], q["o3"], q["d3"], tri_rows,
+                                  torch.zeros((T, ic.ATTR_K), device=tri_rows.device))
+    n_hit_tris = int(torch.unique(tid[t < ic.BIG]).numel())
+    k1 = bound(MT_OPS * T * n_live, R * 24 + B0 * 4 + T * 36 + n_hit_tris * 128 + R * 144)
+    # First blocker per lane, triangle by triangle (T is small here).
+    o = tuple(q["o3"][a].reshape(1, -1) for a in range(3))
+    d = tuple(q["d3"][a].reshape(1, -1) for a in range(3))
+    first = torch.full((R,), T, dtype=torch.int64, device=tri_rows.device)
+    tm, ex = q["tmax"].reshape(-1), q["excl"].reshape(-1)
+    for base in range(0, T, 512):
+        tri = tri_rows[base:base + 512]
+        cols = tuple(tri[:, c:c + 1] for c in range(9))
+        ok, tt, _, _ = ic._mt_core(o, d, cols[0:3], cols[3:6], cols[6:9])
+        ids = torch.arange(base, base + tri.shape[0], device=tri.device)[:, None]
+        blk = ok & (tt < tm[None]) & (ids != ex[None])
+        idx = torch.where(blk, ids, T).amin(dim=0)
+        first = torch.minimum(first, idx)
+    tests = torch.clamp_max(first + 1, T)[live].sum()
+    k2 = bound(MT_OPS * int(tests), R * 33 + B0 * 4 + T * 36)
+    return k1, k2
+
+
 def time_us(fn, reps):
     """Microseconds per call of fn over reps calls, CUDA events."""
     start = torch.cuda.Event(enable_timing=True)
@@ -173,15 +262,23 @@ def time_us(fn, reps):
     return start.elapsed_time(end) * 1e3 / reps
 
 
+def time_turns(fns, reps):
+    """Microseconds per call of each named fn, CUDA events, in turns: the
+    given order, then reversed (plain, kernel, kernel, plain).  Returns
+    {name: (mean, (first turn, second turn))}."""
+    for fn in fns.values():
+        fn()
+    sync()
+    first = {n: time_us(f, reps[n]) for n, f in fns.items()}
+    second = {n: time_us(f, reps[n]) for n, f in reversed(list(fns.items()))}
+    return {n: ((first[n] + second[n]) / 2, (first[n], second[n])) for n in fns}
+
+
 def time_pair(fn_kernel, fn_plain, reps_kernel=50, reps_plain=3):
     """Microseconds per launch, plain/kernel/kernel/plain, CUDA events."""
-    fn_kernel(), fn_plain()
-    sync()
-    p1 = time_us(fn_plain, reps_plain)
-    k1 = time_us(fn_kernel, reps_kernel)
-    k2 = time_us(fn_kernel, reps_kernel)
-    p2 = time_us(fn_plain, reps_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2), (p1, p2)
+    t = time_turns({"plain": fn_plain, "kernel": fn_kernel},
+                   {"plain": reps_plain, "kernel": reps_kernel})
+    return t["kernel"][0], t["plain"][0], t["kernel"][1], t["plain"][1]
 
 
 def assert_render_close(img, ref, what, mean_rel=1e-4, outlier_share=0.005,
@@ -210,13 +307,19 @@ def assert_render_close(img, ref, what, mean_rel=1e-4, outlier_share=0.005,
         raise AssertionError(f"{what}: card render differs from the CPU render")
 
 
-def reset(counts):
-    for key in counts:
-        counts[key] = 0
+def reset(*counts):
+    for c in counts:
+        for key in c:
+            c[key] = 0
+
+
+def cam_tokens(cam):
+    return ["VP", *map(str, cam["eye"]), "LA", *map(str, cam["center"]),
+            "UP", *map(str, cam["up"]), "yview", str(cam["yview"])]
 
 
 # ---------------------------------------------------------------------------
-# Phase 2b helpers: the atrium's wavefronts and the cluster comparisons.
+# Phase 2b/2c helpers: the atrium's wavefronts and the cluster comparisons.
 # ---------------------------------------------------------------------------
 
 
@@ -291,7 +394,8 @@ def atrium_wavefronts(scene, xres, yres, dev):
     # A block of rows of the bounce wavefront in pixel order, as a render
     # without compaction traces it: its rows mix directions and hit ~800 of
     # the atrium's boxes, so with 512-wide lists (a width the JAX package's
-    # sweep measured) they overflow and K6's phase 2 runs at full scale.
+    # sweep measured) they overflow and the visits' phase 2 runs at full
+    # scale.
     blk = slice(max(0, B[0] // 2 - ROW_SAMPLE // 2), B[0] // 2 + ROW_SAMPLE // 2)
     waves = {
         "primary": (o3, d3, None, None),
@@ -304,12 +408,31 @@ def atrium_wavefronts(scene, xres, yres, dev):
     return waves, float(hit.float().mean())
 
 
-def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_rows):
-    """K3 exact on every row and K6/K7 bitwise on a row sample (every row
-    when ``all_rows``; else ROW_SAMPLE seeded rows plus every overflow
-    row), for each wavefront.  Returns the largest |kernel - plain| per
-    kernel and the compared inputs for the timings."""
-    errs = {"cull": 0.0, "closest_cluster": 0.0, "any_cluster": 0.0}
+def take_rows(x, rows):
+    return x[..., rows, :] if x.dim() == 3 else x[rows]
+
+
+def visit_kernels(cc, routes, closest):
+    """The visit kernels' names for the routes, closest or any."""
+    return [cc.ROUTES[r][0 if closest else 1] for r in routes]
+
+
+def run_visit(cc, kernel, lists, o3, d3, tmax, excl, packed, attrs, visits=None):
+    fn = getattr(cc, kernel)
+    if tmax is None:
+        return fn(*lists, o3, d3, packed, attrs, visits=visits)
+    return fn(*lists, o3, d3, tmax, excl, packed, visits=visits)
+
+
+def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_rows,
+                    routes):
+    """K3 exact on every row; each route's visit kernels (K4/K5 resident,
+    K6/K7 stream) bitwise equal to the plain versions on a row sample (every
+    row when ``all_rows``; else ROW_SAMPLE seeded rows plus every overflow
+    row), and with both routes K4 vs K6 and K5 vs K7 bitwise on every row.
+    Returns the largest |kernel - plain| per kernel, the compared inputs for
+    the timings, and the number of overflow rows compared."""
+    errs = {"cull": 0.0, **{k: 0.0 for r in routes for k in cc.ROUTES[r]}}
     inputs = {}
     n_overflow_sampled = 0
     for wname, (o3, d3, tmax, excl, *le) in waves.items():
@@ -332,70 +455,385 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
         n_overflow_sampled += int(meta[rows, 1].sum())
         sub = tuple(x[rows].contiguous() for x in lists)
         so3, sd3 = o3[:, rows].contiguous(), d3[:, rows].contiguous()
-        if tmax is None:
-            got = cc.closest_cluster(*lists, o3, d3, packed, attrs)
+        closest = tmax is None
+        kernels = visit_kernels(cc, routes, closest)
+        outs = {k: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs) for k in kernels}
+        if closest:
             want = cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs)
-            sync()
-            fields = zip(("t", "id", "u", "v", "attrs"), got, want)
-            bad = [f for f, a, b in fields
-                   if not torch.equal(bits(a[..., rows, :] if a.dim() == 3 else a[rows]), bits(b))]
-            errs["closest_cluster"] = max(
-                [errs["closest_cluster"]] + [max_err(a[..., rows, :] if a.dim() == 3 else a[rows], b)
-                                             for a, b in zip(got, want)])
-            kernel = "K6"
-            share = float((got[0] < cc.BIG).float().mean())
+            fields = ("t", "id", "u", "v", "attrs")
         else:
-            got = cc.any_cluster(*lists, o3, d3, tmax, excl, packed)
-            want = cc.any_cluster_plain(*sub, so3, sd3, tmax[rows].contiguous(),
-                                        excl[rows].contiguous(), packed)
-            sync()
-            bad = [] if torch.equal(got[rows], want) else ["occluded"]
-            errs["any_cluster"] = max(errs["any_cluster"], max_err(got[rows].float(), want.float()))
-            kernel = "K7"
-            share = float(got.float().mean())
+            want = (cc.any_cluster_plain(*sub, so3, sd3, tmax[rows].contiguous(),
+                                         excl[rows].contiguous(), packed),)
+            fields = ("occluded",)
+        sync()
+        bad = []
+        for k, got in outs.items():
+            got = got if closest else (got,)
+            for f, a, b in zip(fields, got, want):
+                a = take_rows(a, rows)
+                if not torch.equal(bits(a), bits(b)):
+                    bad.append(f"{KERNEL_IDS[k]} {f} vs plain")
+                errs[k] = max(errs[k], max_err(a.float(), b.float()))
+        if len(kernels) == 2:
+            a_out, b_out = (o if closest else (o,) for o in outs.values())
+            for f, a, b in zip(fields, a_out, b_out):
+                if not torch.equal(bits(a), bits(b)):
+                    bad.append(f"{f}: {KERNEL_IDS[kernels[0]]} vs {KERNEL_IDS[kernels[1]]}")
+        first = outs[kernels[0]]
+        share = float((first[0] < cc.BIG).float().mean()) if closest else float(first.float().mean())
         trip = meta[:, 0].float()
+        vs = (f"; {KERNEL_IDS[kernels[0]]} vs {KERNEL_IDS[kernels[1]]} on all {nB0} rows"
+              if len(kernels) == 2 else "")
         print(f"[cluster] {name}/{wname}: B0={nB0} Le={wle} trip p50={float(trip.median())} "
               f"max={int(meta[:, 0].max())} overflow share={float(meta[:, 1].float().mean()):.5f} "
-              f"({overflow.numel()} rows); {kernel} on {rows.numel()} rows "
-              f"({int(meta[rows, 1].sum())} overflow): {'hit' if tmax is None else 'occluded'} "
-              f"share {share:.4f}, mismatched={bad or 'none'}")
+              f"({overflow.numel()} rows); {'/'.join(KERNEL_IDS[k] for k in kernels)} vs plain on "
+              f"{rows.numel()} rows ({int(meta[rows, 1].sum())} overflow){vs}: "
+              f"{'hit' if closest else 'occluded'} share {share:.4f}, mismatched={bad or 'none'}")
         if bad:
-            raise AssertionError(f"{name}/{wname}: {kernel} differs from plain in {bad}")
+            raise AssertionError(f"{name}/{wname}: {bad}")
         inputs[wname] = (o3, d3, tmax, excl, lists, wle)
-    print(f"[cluster] {name}: K3 equals plain on every row; K6/K7 bitwise on the samples "
+    ids = "/".join(KERNEL_IDS[k] for r in routes for k in cc.ROUTES[r])
+    print(f"[cluster] {name}: K3 equals plain on every row; {ids} bitwise on the samples "
           f"({n_overflow_sampled} overflow rows among them)")
     return errs, inputs, n_overflow_sampled
 
 
-def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng):
-    """K3 on every row and K6/K7 on ROW_SAMPLE seeded rows, each against
-    its plain version on the same rows; K6/K7 also on every row."""
+def open_lane_tests(cc, lists, o3, d3, tmax, excl, packed, visits, occ):
+    """(lane, triangle) tests an occlusion launch needs: each row visits
+    the clusters its ``visits`` count covers (phase 1's listed ones, then
+    phase 2's identity-order sweep; phase 1 ends early only where phase 2
+    makes no visit, since the cutoff is at least every listed near), and
+    each lane tests only up to and including its first blocker in that
+    order (K5/K7 stop there).  The lanes this finds occluded must be
+    ``occ``, the kernel's result, or the visit order is not the kernel's."""
+    meta, ids = lists[0], lists[1]
+    K, M = packed.shape[0], packed.shape[2]
+    dev = o3.device
+    found = torch.zeros_like(occ)
+    tests = 0
+    for b in range(o3.shape[1]):
+        n = int(visits[b])
+        n1 = min(n, int(meta[b, 0]))
+        if n - n1 > K:
+            raise AssertionError(f"row {b}: {n} visits past the {K}-cluster sweep")
+        seq = torch.cat([ids[b, :n1].long(), torch.arange(n - n1, device=dev)])
+        o = tuple(o3[a, b][None] for a in range(3))
+        d = tuple(d3[a, b][None] for a in range(3))
+        done = torch.zeros(128, dtype=torch.bool, device=dev)
+        count = torch.zeros(128, dtype=torch.int64, device=dev)
+        for v0, e1, e2, oid in cc._tri_chunks(packed, seq):
+            ok, t, _, _ = cc._mt_core(o, d, v0, e1, e2)          # (C, 128)
+            blocking = ok & (t < tmax[b][None]) & (oid[:, None] != excl[b][None])
+            C = oid.numel()
+            first = torch.where(blocking, torch.arange(C, device=dev)[:, None], C).amin(0)
+            count += torch.where(done, 0, torch.clamp_max(first + 1, C))
+            done |= first < C
+        found[b] = done
+        tests += int(count.sum())
+    if not torch.equal(found, occ):
+        raise AssertionError("the occlusion bound's visit order does not reproduce the kernel")
+    return tests
+
+
+def visit_bound(lists, o3, tmax, packed, visits, tests, hit_tris):
+    """Bound of one visit launch: MT_OPS per (lane, triangle) test these
+    inputs need (closest: every lane over the clusters ``visits`` (per row)
+    counts; occlusion: :func:`open_lane_tests`); bytes: rays, lists up to
+    trip, the distinct cluster blocks (at most the visits), the attribute
+    rows of the ``hit_tris`` distinct hit triangles read once, the outputs
+    written once."""
+    B0_, M = o3.shape[1], packed.shape[2]
+    R = B0_ * 128
+    n_vis = int(visits.sum())
+    nbytes = (R * 24 + B0_ * 12 + int(lists[0][:, 0].sum()) * 8
+              + min(packed.shape[0], n_vis) * packed.shape[1] * M * 4)
+    if tmax is None:
+        nbytes += hit_tris * 128 + R * 144
+    else:
+        nbytes += R * 9
+    return bound(MT_OPS * tests, nbytes)
+
+
+def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
+    """For each wavefront: K3 on every row (against its plain version) and
+    each route's visit kernel on ROW_SAMPLE seeded rows against the plain
+    version, in turns; the kernels also on every row.  The per-row visit
+    counts of each kernel on the sample and on every row, and the bound of
+    the sample launch from the per-visit early exit's count (K6/K7's: the
+    least the data needs)."""
     timings = {}
     for wname, (o3, d3, tmax, excl, lists, wle) in inputs.items():
-        pick = torch.from_numpy(rng.choice(o3.shape[1], ROW_SAMPLE, replace=False)).to(o3.device)
+        dev = o3.device
+        nB0 = o3.shape[1]
+        pick = torch.from_numpy(rng.choice(nB0, min(ROW_SAMPLE, nB0), replace=False)).to(dev)
         sub = tuple(x[pick].contiguous() for x in lists)
         so3, sd3 = o3[:, pick].contiguous(), d3[:, pick].contiguous()
-        timings[("cull", wname)] = time_pair(
+        stm = sex = None
+        if tmax is not None:
+            stm, sex = tmax[pick].contiguous(), excl[pick].contiguous()
+        k_us, p_us, ks, ps = time_pair(
             lambda: cc.cull(o3, d3, bmin, bmax, wle, tmax=tmax),
             lambda: cc.cull_plain(o3, d3, bmin, bmax, wle, tmax=tmax),
-            reps_kernel=10, reps_plain=1,
-        )
-        if tmax is None:
-            name = "closest_cluster"
-            full = lambda: cc.closest_cluster(*lists, o3, d3, packed, attrs)  # noqa: E731
-            kern = lambda: cc.closest_cluster(*sub, so3, sd3, packed, attrs)  # noqa: E731
-            plain = lambda: cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs)  # noqa: E731
+            reps_kernel=10, reps_plain=1)
+        K = bmin.shape[0]
+        ops = CULL_OPS * nB0 * 128 * K
+        nbytes = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + K * 24 \
+            + nB0 * (12 + 8 * wle)
+        timings[("cull", wname)] = dict(us=k_us, plain_us=p_us, turns=ks, plain_turns=ps,
+                                        bound=bound(ops, nbytes), rows=nB0)
+        closest = tmax is None
+        kernels = visit_kernels(cc, routes, closest)
+        fns = {"plain": (lambda: cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs))
+               if closest else
+               (lambda: cc.any_cluster_plain(*sub, so3, sd3, stm, sex, packed))}
+        for k in kernels:
+            fns[k] = (lambda k=k: run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs))
+        reps = {n: (1 if n == "plain" else 10) for n in fns}
+        sample_t = time_turns(fns, reps)
+        full_t = time_turns(
+            {k: (lambda k=k: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs))
+             for k in kernels}, dict.fromkeys(kernels, 10))
+        visits = {}
+        for k in kernels:
+            vs = torch.zeros(so3.shape[1], dtype=torch.int32, device=dev)
+            va = torch.zeros(nB0, dtype=torch.int32, device=dev)
+            out = run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs, visits=vs)
+            run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=va)
+            visits[k] = (vs, va, out)
+        least = cc.ROUTES["stream"][0 if closest else 1]
+        least = least if least in visits else kernels[0]
+        l_vs, _, l_out = visits[least]
+        if closest:
+            tests = 128 * packed.shape[2] * int(l_vs.sum())
+            hit_tris = int(torch.unique(l_out[1][l_out[0] < cc.BIG]).numel())
         else:
-            name = "any_cluster"
-            stm, sex = tmax[pick].contiguous(), excl[pick].contiguous()
-            full = lambda: cc.any_cluster(*lists, o3, d3, tmax, excl, packed)  # noqa: E731
-            kern = lambda: cc.any_cluster(*sub, so3, sd3, stm, sex, packed)  # noqa: E731
-            plain = lambda: cc.any_cluster_plain(*sub, so3, sd3, stm, sex, packed)  # noqa: E731
-        timings[(name, wname)] = time_pair(kern, plain, reps_kernel=10, reps_plain=1)
-        timings[(name + " all rows", wname)] = time_us(full, 10)
-        timings[("rows", wname)] = (o3.shape[1], wle, float(lists[0][:, 0].float().median()),
+            tests = open_lane_tests(cc, sub, so3, sd3, stm, sex, packed, l_vs, l_out)
+            hit_tris = 0
+        b = visit_bound(sub, so3, stm, packed, l_vs, tests, hit_tris)
+        for k in kernels:
+            vs, va, _ = visits[k]
+            timings[(k, wname)] = dict(
+                us=sample_t[k][0], turns=sample_t[k][1], plain_us=sample_t["plain"][0],
+                plain_turns=sample_t["plain"][1], full_us=full_t[k][0], full_turns=full_t[k][1],
+                visits_sample=int(vs.sum()), visits_all=int(va.sum()), bound=b,
+                tests_sample=tests, rows=nB0)
+        timings[("rows", wname)] = (nB0, wle, float(lists[0][:, 0].float().median()),
                                     float(sub[0][:, 0].float().median()))
     return timings
+
+
+def print_cluster_timings(card, scene_name, ctimings):
+    for (kern, wname), val in ctimings.items():
+        if kern == "rows":
+            print(f"[timing] {card}: {scene_name} {wname}: B0={val[0]} Le={val[1]}, trip p50 "
+                  f"{val[2]} on all rows, {val[3]} on the timed sample")
+            continue
+        kid = KERNEL_IDS[kern]
+        b_ms, b_by = val["bound"]
+        if kern == "cull":
+            print(f"[timing] {card}: {kid} cull {scene_name} {wname} B0={val['rows']}: kernel "
+                  f"{val['us']:.1f} us (turns {val['turns'][0]:.1f}, {val['turns'][1]:.1f}), "
+                  f"plain {val['plain_us']:.1f} us (turns {val['plain_turns'][0]:.1f}, "
+                  f"{val['plain_turns'][1]:.1f}); bound {b_ms * 1e3:.1f} us ({b_by})")
+        else:
+            print(f"[timing] {card}: {kid} {kern} {scene_name} {wname}, sample of {ROW_SAMPLE} "
+                  f"rows: kernel {val['us']:.1f} us (turns {val['turns'][0]:.1f}, "
+                  f"{val['turns'][1]:.1f}), plain {val['plain_us']:.1f} us (turns "
+                  f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}), "
+                  f"{val['visits_sample']} visits, bound {b_ms * 1e3:.1f} us ({b_by}, "
+                  f"{val['tests_sample']} lane-triangle tests needed); all "
+                  f"{val['rows']} rows: {val['full_us']:.1f} us (turns {val['full_turns'][0]:.1f}, "
+                  f"{val['full_turns'][1]:.1f}), {val['visits_all']} visits "
+                  f"({val['visits_all'] / val['rows']:.1f} per row)")
+
+
+def cli_render(cli, repo, counts, tokens, out_name):
+    """One CLI batch render into a temporary EXR; returns (renderer, the
+    launches of every kernel during the run, wall seconds, (peak device
+    memory, device memory already held when the run began), the EXR read
+    back)."""
+    from chiaroscuro_tpu_torch.render.image_io import read_exr
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        exr = os.path.join(out_dir, out_name)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset(*counts)
+        t0 = time.perf_counter()
+        renderer = cli.run(["chiaroscuro_tpu_torch", os.path.join(repo, "scenes", "cornell.rtc"),
+                            "no-preview", *tokens, "output", exr])
+        total = time.perf_counter() - t0
+        launches = {k: v for c in counts for k, v in c.items()}
+        sync()
+        peak = torch.cuda.max_memory_allocated()
+        exported = read_exr(exr)
+    return renderer, launches, total, (peak, held), exported
+
+
+def mem_text(mem):
+    peak, held = mem
+    return (f"peak device memory {peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB of it "
+            "held before the run began)")
+
+
+def report_frame(card, what, r, total, mem):
+    """The CLI render's phases, cold frame and memory, then the same frame
+    again, warm, from the CLI's renderer."""
+    ph, rst = r.phase_seconds, r.last_stats
+    print(f"[timing] {card}: {what} k3 1 spp (CLI, cold): scene {ph['scene']:.2f} s, "
+          f"clusters + buffers {ph['intersectors']:.2f} s, render {rst['seconds'] * 1e3:.1f} "
+          f"ms/frame ({rst['useful_rays_per_sec'] / 1e6:.2f} useful Mray/s, occupancy "
+          f"{rst['occupancy']:.3f}), export {ph['export']:.2f} s, CLI total {total:.2f} s; "
+          f"{mem_text(mem)}")
+    r.ray_trace(r.cfg.vp, r.cfg.la, r.cfg.up, r.cfg.yview)
+    print(f"[timing] {card}: {what} frame warm: {r.last_stats['seconds'] * 1e3:.1f} "
+          f"ms/frame ({r.last_stats['useful_rays_per_sec'] / 1e6:.2f} useful Mray/s)")
+
+
+def check_atrium_render(renderer, exported, launches, want, what, res):
+    img, cfg = renderer.pixels, renderer.cfg
+    xres, yres = res
+    blocks = img.reshape(yres // 4, 4, xres // 4, 4, 3).mean(axis=(1, 3))
+    lit = float(np.median(blocks.max(axis=-1)))
+    print(f"[render] {what} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}: "
+          f"launches={launches} route={renderer.intersectors[0].route} mean={float(img.mean())} "
+          f"median max over 4x4 blocks={lit} (per pixel {float(np.median(img.max(axis=-1)))}, "
+          f"lit pixels {float((img.max(axis=-1) > 1e-3).mean()):.3f}) "
+          f"compaction={renderer.intersectors[0].prefers_compaction}")
+    if {k: launches[k] for k in want} != want or any(
+            n for k, n in launches.items() if k not in want):
+        raise AssertionError(f"{what} launches {launches} != {want}")
+    if not (np.isfinite(img).all() and img.shape == (yres, xres, 3) and lit > 1e-3):
+        raise AssertionError(f"{what} render is not finite and lit")
+    if not np.allclose(exported, img, rtol=2.0**-10, atol=1e-6):
+        raise AssertionError(f"the exported {what} EXR does not read back as the render")
+
+
+def profile(fn, label, card):
+    """torch.profiler over one call of ``fn``: device time by layer (CUDA
+    kernel names), busy share of the profiled wall time, and the kernels'
+    per-launch times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    layers, per_launch, n_kernels = {}, {}, 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = float(getattr(e, "self_device_time_total", 0.0))
+        if us <= 0:
+            continue
+        name = e.key
+        n_kernels += e.count
+        if "cull_kernel" in name:
+            layer = "K3 cull_kernel"
+        elif "closest_cluster_kernel<false>" in name:
+            layer = "K4 closest_resident"
+        elif "any_cluster_kernel<false>" in name:
+            layer = "K5 any_resident"
+        elif "closest_cluster_kernel<true>" in name:
+            layer = "K6 closest_cluster"
+        elif "any_cluster_kernel<true>" in name:
+            layer = "K7 any_cluster"
+        elif "closest_dense_kernel" in name:
+            layer = "K1 closest_dense"
+        elif "any_dense_kernel" in name:
+            layer = "K2 any_dense"
+        elif "sort" in name.lower() or "radix" in name.lower():
+            layer = "sorts"
+        elif "index" in name.lower() or "gather" in name.lower() or "scatter" in name.lower():
+            layer = "gathers and scatters"
+        else:
+            layer = "integrator (elementwise, Threefry, reductions, copies)"
+        layers[layer] = layers.get(layer, 0.0) + us
+        if layer.startswith("K"):
+            n_prev = per_launch.get(layer, (0.0, 0))[1]
+            per_launch[layer] = (layers[layer] / (n_prev + e.count), n_prev + e.count)
+    busy = sum(layers.values()) / 1e3
+    if busy <= 0:
+        print(f"[profile] {card}: {label}: torch.profiler recorded no device time: not measured")
+        return
+    print(f"[profile] {card}: {label}: {wall_ms:.1f} ms profiled wall, {busy:.1f} ms device "
+          f"busy (idle {100 * (1 - busy / wall_ms):.1f}%), {n_kernels} device kernels")
+    for layer, us in sorted(layers.items(), key=lambda kv: -kv[1]):
+        extra = ""
+        if layer in per_launch:
+            extra = f" ({per_launch[layer][1]} launches, {per_launch[layer][0] / 1e3:.2f} ms each)"
+        print(f"[profile]   {layer}: {us / 1e3:.2f} ms ({100 * us / 1e3 / busy:.1f}% of busy){extra}")
+
+
+def profile_frame(renderer, card):
+    """:func:`profile` over one warm frame of a CLI renderer."""
+    cfg = renderer.cfg
+    profile(lambda: renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview),
+            f"{cfg.obj_path} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}, one warm frame",
+            card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: gradients.
+# ---------------------------------------------------------------------------
+
+
+def grad_run(scene, cam, res, spp, depth, fields, pair_of, checkpoint=False, counts=()):
+    """Value and gradients of the mean image w.r.t. ``fields``, the
+    intersectors rebuilt on the parameter-substituted scene by
+    ``pair_of(scene)``.  Returns (loss, {field: grad on the CPU}, launches,
+    seconds, (peak device memory, device memory held when the run began) or
+    (0, 0))."""
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+    from chiaroscuro_tpu_torch.scene.scene_arrays import params_from_numpy
+
+    dev = scene.device
+    xres, yres = res
+    ys, xs = torch.meshgrid(torch.arange(yres, device=dev), torch.arange(xres, device=dev),
+                            indexing="ij")
+    held = 0
+    if dev.type == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    reset(*counts)
+    t0 = time.perf_counter()
+    params = params_from_numpy({k: getattr(scene, k).cpu().numpy() for k in fields}, dev)
+    s = scene.replace(**params)
+    cf, af = pair_of(s)
+    img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], xres, yres,
+                         xs.reshape(-1), ys.reshape(-1), 0, spp, 0, depth, (0.0, 0.0, 0.0),
+                         cf, af, checkpoint=checkpoint)
+    loss = img.mean()
+    loss.backward()
+    grads = {k: v.grad.cpu() for k, v in params.items()}
+    seconds = time.perf_counter() - t0
+    launches = {k: v for c in counts for k, v in c.items() if v}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    return float(loss.detach()), grads, launches, seconds, (peak, held)
+
+
+def compare_grads(what, card, cpu, rel=1e-3):
+    """Card gradients against the CPU's: per field, sum |d| <= rel x sum
+    |g_cpu| (a path that an ulp of a CUDA vs CPU transcendental turned moves
+    a few entries, as it moves a few pixels of a render), and the loss to
+    rtol 1e-4."""
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    print(f"[grad] {what}: loss card {l_card} cpu {l_cpu}")
+    ok = abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    for k, ref in g_cpu.items():
+        got = g_card[k]
+        d = (got.double() - ref.double()).abs()
+        l1 = float(d.sum()) / max(float(ref.double().abs().sum()), 1e-30)
+        print(f"[grad]   d/d{k}: sum|card-cpu|/sum|cpu|={l1}, max|card-cpu|={float(d.max())} "
+              f"(max|cpu|={float(ref.abs().max())}), finite={bool(torch.isfinite(got).all())}")
+        ok = ok and l1 <= rel and bool(torch.isfinite(got).all())
+    if not ok:
+        raise AssertionError(f"{what}: card gradients differ from the CPU's")
 
 
 def main() -> int:
@@ -404,21 +842,29 @@ def main() -> int:
         return 1
     from chiaroscuro_tpu_torch import cli
     from chiaroscuro_tpu_torch.accel.clusters import build_clusters
+    from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
     from chiaroscuro_tpu_torch.ops import cull_triton
     from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
-    from chiaroscuro_tpu_torch.render.image_io import read_exr
     from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
-    from chiaroscuro_tpu_torch.scene.builtin import cornell_box
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
     from chiaroscuro_tpu_torch.scene.config import RenderConfig
     from chiaroscuro_tpu_torch.scene.scene_arrays import build_scene_tensors, load_scene
     from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA, atrium
 
+    t_start = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    counts = (ic.LAUNCHES, cc.LAUNCHES)
+    main_launches = {k: 0 for c in counts for k in c}   # summed over the CLI runs
+
+    def add_launches(launches):
+        for k, n in launches.items():
+            main_launches[k] += n
+
     # --- phase 1: device and build ------------------------------------------
     print(f"[device] nvidia-smi: {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
@@ -460,10 +906,11 @@ def main() -> int:
             compare_kernels(ic, "cornell", c_rows, c_attrs, c_q),
             compare_kernels(ic, "soup", s_rows, s_attrs, s_q),
         )
+        dense_bound = dense_bounds(ic, c_rows, c_q)
     print("[kernels] K1/K2 equal their plain versions bitwise")
     sync()
 
-    # --- phase 2b: cluster kernels vs plain ------------------------------------
+    # --- phase 2b: streaming cluster kernels vs plain (481k) -------------------
     t0 = time.perf_counter()
     big = build_scene_tensors(atrium(480_000), device=dev)
     sync()
@@ -486,7 +933,43 @@ def main() -> int:
         if waves["primary"][0].shape[1] != 7200 or primary_hits < 0.99:
             raise AssertionError(f"atrium primary wavefront: B0 or hit share {primary_hits} off")
         big_errs, big_inputs, n_over = compare_cluster(
-            cc, "atrium 1280x720", waves, bmin, bmax, Le, packed, attrs, rng, all_rows=False)
+            cc, "atrium 1280x720", waves, bmin, bmax, Le, packed, attrs, rng, all_rows=False,
+            routes=("stream",))
+        ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng,
+                                routes=("stream",))
+    if n_over == 0:
+        raise AssertionError("no overflow row was compared: phase 2 of K6/K7 went unchecked")
+    del big, packed, attrs, waves, big_inputs
+    torch.cuda.empty_cache()
+    print("[cluster] K3 exact, K6/K7 bitwise against their plain versions")
+
+    # --- phase 2c: resident cluster kernels (262k) -----------------------------
+    t0 = time.perf_counter()
+    mid = build_scene_tensors(atrium(MID_TRIS), device=dev)
+    sync()
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mca = build_clusters(*(x.cpu().numpy() for x in (mid.tri_v0, mid.tri_v1, mid.tri_v2)))
+    m_packed, m_attrs = cc.derive_buffers(mid, mca)
+    m_bmin = torch.from_numpy(mca.bbox_min).to(dev)
+    m_bmax = torch.from_numpy(mca.bbox_max).to(dev)
+    sync()
+    t_clusters = time.perf_counter() - t0
+    print(f"[cluster] atrium:{MID_TRIS}: T={mid.n_tris} lights={mid.n_lights} K={mca.K} "
+          f"M={mca.M} stream={cc.streams_by_budget(mca.K, mca.M)} (packed "
+          f"{mca.K * mca.M * cc.PACK_W * 4 / 2**20:.1f} MiB by the JAX rule, the port's "
+          f"(K, 10, M) matrix {m_packed.numel() * 4 / 2**20:.1f} MiB); scene {t_scene:.2f} s, "
+          f"clusters + buffers {t_clusters:.2f} s")
+    if (mid.n_tris, mca.K) != (261_396, 2_043) or cc.streams_by_budget(mca.K, mca.M):
+        raise AssertionError("atrium:262144 is no longer the 261,396-triangle resident scene")
+    with torch.no_grad():
+        m_waves, primary_hits = atrium_wavefronts(mid, *ATRIUM_RES, dev)
+        if primary_hits < 0.99:
+            raise AssertionError(f"atrium:{MID_TRIS} primary hit share {primary_hits} off")
+        mid_errs, mid_inputs, n_over = compare_cluster(
+            cc, f"atrium:{MID_TRIS} 1280x720", m_waves, m_bmin, m_bmax,
+            min(cc.DEFAULT_LMAX, mca.K), m_packed, m_attrs, rng, all_rows=False,
+            routes=("resident", "stream"))
         small = build_scene_tensors(atrium(2_200, seed=5), device=dev)
         sca = build_clusters(*(x.cpu().numpy() for x in (small.tri_v0, small.tri_v1, small.tri_v2)), 32)
         s_packed, s_attrs2 = cc.derive_buffers(small, sca)
@@ -494,125 +977,132 @@ def main() -> int:
         small_errs, _, s_over = compare_cluster(
             cc, "atrium(2_200) M=32", s_waves, torch.from_numpy(sca.bbox_min).to(dev),
             torch.from_numpy(sca.bbox_max).to(dev), SMALL_LMAX, s_packed, s_attrs2, rng,
-            all_rows=True)
-        ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng)
-    if n_over + s_over == 0:
-        raise AssertionError("no overflow row was compared: phase 2 of K6/K7 went unchecked")
-    cluster_errs = {k: max(big_errs[k], small_errs[k]) for k in big_errs}
-    print("[cluster] K3 exact, K6/K7 bitwise against their plain versions")
+            all_rows=True, routes=("resident", "stream"))
+        mtimings = time_cluster(cc, mid_inputs, m_bmin, m_bmax, m_packed, m_attrs, rng,
+                                routes=("resident", "stream"))
+    if n_over == 0 or s_over == 0:
+        raise AssertionError("no overflow row was compared: phase 2 of K4/K5 went unchecked")
+    cluster_errs = {k: max(big_errs.get(k, 0.0), mid_errs.get(k, 0.0), small_errs.get(k, 0.0))
+                    for k in ("cull", *cc.ROUTES["resident"], *cc.ROUTES["stream"])}
+    # The renders and phase 5 build their own scenes: hold nothing of this
+    # phase's on the card while their peak memory is read.
+    del mid, m_packed, m_attrs, m_waves, mid_inputs, small, s_packed, s_attrs2, s_waves
+    torch.cuda.empty_cache()
+    print("[cluster] K3 exact, K4/K5 bitwise against their plain versions and against K6/K7")
 
     # --- phase 3: Cornell render -------------------------------------------------
-    with tempfile.TemporaryDirectory() as out_dir:
-        exr = os.path.join(out_dir, "cornell_768_16spp.exr")
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset(ic.LAUNCHES)
-        reset(cc.LAUNCHES)
-        renderer = cli.run([
-            "chiaroscuro_tpu_torch", os.path.join(repo, "scenes", "cornell.rtc"),
-            "no-preview", "samples", str(RENDER_SPP), "output", exr,
-        ])
-        launches = dict(ic.LAUNCHES)
-        cluster_in_cornell = dict(cc.LAUNCHES)
-        sync()
-        peak = torch.cuda.max_memory_allocated(dev)
-        exported = read_exr(exr)
+    renderer, launches, _, mem, exported = cli_render(
+        cli, repo, counts, ["samples", str(RENDER_SPP)], "cornell_768.exr")
+    add_launches(launches)
     cfg, st = renderer.cfg, renderer.last_stats
     img = renderer.pixels
     print(f"[render] {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples} "
           f"launches={launches} mean={float(img.mean())} max={float(img.max())}")
     if (cfg.xres, cfg.yres, cfg.k, cfg.samples) != (768, 768, RENDER_K, RENDER_SPP):
         raise AssertionError("scenes/cornell.rtc no longer renders 768x768 at k 6")
-    if launches != {"closest": RENDER_SPP * RENDER_K, "any": RENDER_SPP * RENDER_K}:
-        raise AssertionError(f"kernel launches {launches} != samples x k")
-    if any(cluster_in_cornell.values()):
-        raise AssertionError(f"Cornell launched cluster kernels: {cluster_in_cornell}")
+    want = {"closest": RENDER_SPP * RENDER_K, "any": RENDER_SPP * RENDER_K}
+    if launches != {**dict.fromkeys(launches, 0), **want}:
+        raise AssertionError(f"kernel launches {launches} != samples x k on K1/K2 only")
     if not (np.isfinite(img).all() and img.mean() > 1e-3 and (img > 1e-3).mean() > 0.5):
         raise AssertionError("render is not finite and non-trivial")
     # The EXR stores HALF floats: 2^-11 relative.
     if not np.allclose(exported, img, rtol=2.0**-10, atol=1e-6):
         raise AssertionError("the exported EXR does not read back as the render")
+    del renderer
 
     small_cfg = ["input", "builtin:cornell_box", "xres", "128", "yres", "128",
-                 "samples", "4", "k", "6", "VP", "278", "273", "-800",
-                 "LA", "278", "273", "0", "yview", "0.7"]
+                 "samples", "4", "k", "6", *cam_tokens(CORNELL_CAMERA)]
     imgs = {}
     for platform in ("cuda", "cpu"):
         c = RenderConfig.from_tokens(small_cfg + ["platform", platform])
         s = load_scene(c, dev if platform == "cuda" else torch.device("cpu"))
-        imgs[platform] = render_image(s, c).cpu().numpy()
+        with torch.no_grad():
+            imgs[platform] = render_image(s, c).cpu().numpy()
     sync()
     assert_render_close(imgs["cuda"], imgs["cpu"], "cornell 128x128")
 
-    # --- phase 3b: atrium render ---------------------------------------------------
-    cam = ["VP", *map(str, ATRIUM_CAMERA["eye"]), "LA", *map(str, ATRIUM_CAMERA["center"]),
-           "UP", *map(str, ATRIUM_CAMERA["up"]), "yview", str(ATRIUM_CAMERA["yview"])]
-    del big, packed, attrs, waves, big_inputs
+    # --- phase 3b: 481k atrium render, atrium(2_200) card vs CPU ---------------
+    cam = cam_tokens(ATRIUM_CAMERA)
+    a_renderer, a_launches, a_total, a_mem, a_exported = cli_render(
+        cli, repo, counts,
+        ["input", "synthetic:atrium", "intersector", "auto", "xres", str(ATRIUM_RES[0]),
+         "yres", str(ATRIUM_RES[1]), "samples", "1", "k", str(ATRIUM_K), *cam],
+        "atrium_1280x720.exr")
+    add_launches(a_launches)
+    check_atrium_render(a_renderer, a_exported, a_launches,
+                        {"cull": 2 * ATRIUM_K, "closest_cluster": ATRIUM_K,
+                         "any_cluster": ATRIUM_K}, "atrium", ATRIUM_RES)
+    if a_renderer.intersectors[0].route != "stream":
+        raise AssertionError("the 481k atrium did not take the streaming route")
+    report_frame(card, "atrium 481k 1280x720", a_renderer, a_total, a_mem)
+    del a_renderer, a_exported
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as out_dir:
-        exr = os.path.join(out_dir, "atrium_1280x720.exr")
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset(ic.LAUNCHES)
-        reset(cc.LAUNCHES)
-        t0 = time.perf_counter()
-        a_renderer = cli.run([
-            "chiaroscuro_tpu_torch", os.path.join(repo, "scenes", "cornell.rtc"),
-            "no-preview", "input", "synthetic:atrium", "intersector", "auto",
-            "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
-            "k", str(ATRIUM_K), "output", exr, *cam,
-        ])
-        a_total = time.perf_counter() - t0
-        a_launches = dict(cc.LAUNCHES)
-        dense_in_atrium = dict(ic.LAUNCHES)
-        sync()
-        a_peak = torch.cuda.max_memory_allocated(dev)
-        a_exported = read_exr(exr)
-    a_img, a_st, a_cfg = a_renderer.pixels, a_renderer.last_stats, a_renderer.cfg
-    # Lit: tests/test_synthetic.py's median of the per-pixel max, taken over
-    # 4x4-pixel block means.  At 1 spp most single pixels are legitimately
-    # black (NEE occluded, then Russian roulette ends the path: 44% of the
-    # pixels of this frame are non-zero in a CPU render, 87% at 4 spp); a
-    # block mean is a 16-sample estimate.
-    blocks = a_img.reshape(180, 4, 320, 4, 3).mean(axis=(1, 3))
-    lit = float(np.median(blocks.max(axis=-1)))
-    print(f"[render] atrium {a_cfg.xres}x{a_cfg.yres} k={a_cfg.k} spp={a_cfg.samples}: "
-          f"launches={a_launches} dense={dense_in_atrium} mean={float(a_img.mean())} "
-          f"median max over 4x4 blocks={lit} (per pixel "
-          f"{float(np.median(a_img.max(axis=-1)))}, lit pixels "
-          f"{float((a_img.max(axis=-1) > 1e-3).mean()):.3f}) "
-          f"compaction={a_renderer.intersectors[0].prefers_compaction}")
-    want = {"cull": 2 * ATRIUM_K, "closest_cluster": ATRIUM_K, "any_cluster": ATRIUM_K}
-    if a_launches != want or any(dense_in_atrium.values()):
-        raise AssertionError(f"atrium launches {a_launches} (dense {dense_in_atrium}) != {want}")
-    if not (np.isfinite(a_img).all() and a_img.shape == (720, 1280, 3) and lit > 1e-3):
-        raise AssertionError("atrium render is not finite and lit")
-    if not np.allclose(a_exported, a_img, rtol=2.0**-10, atol=1e-6):
-        raise AssertionError("the exported atrium EXR does not read back as the render")
 
     s_tokens = ["input", "synthetic:atrium:2200", "xres", "160", "yres", "90",
                 "samples", "2", "k", "2", *cam]
-    s_imgs = {}
-    for platform in ("cuda", "cpu"):
-        c = RenderConfig.from_tokens(s_tokens + ["platform", platform])
-        s = load_scene(c, dev if platform == "cuda" else torch.device("cpu"))
-        pair = cc.make_cluster_intersectors(s, stream=True)
-        s_imgs[platform] = render_image(s, c, intersectors=pair).cpu().numpy()
-        if platform == "cuda":
-            cf, af = pair
-            cf.prefers_ray_sort = True       # the full path's spatial sorts
-            ys, xs = torch.meshgrid(torch.arange(90, device=dev),
-                                    torch.arange(160, device=dev), indexing="ij")
-            args = (s, c.vp, c.la, c.up, c.yview, 160, 90, xs.reshape(-1), ys.reshape(-1),
-                    0, 2, c.seed, 2, c.background, cf, af)
-            plain_order = render_samples(*args, compact=False)
-            compacted = render_samples(*args, compact=True)
-            sync()
-            if not torch.equal(bits(plain_order), bits(compacted)):
-                raise AssertionError("compacted atrium render differs from the uncompacted one")
-            print("[render] atrium(2_200) 160x90 on the card: compact=True (spatial sorts) "
-                  "bitwise equal to compact=False")
-    sync()
-    assert_render_close(s_imgs["cuda"], s_imgs["cpu"], "atrium(2_200) 160x90",
-                        flipped_mean_rel=1e-3)
+    for stream in (None, True):
+        s_imgs = {}
+        for platform in ("cuda", "cpu"):
+            c = RenderConfig.from_tokens(s_tokens + ["platform", platform])
+            s = load_scene(c, dev if platform == "cuda" else torch.device("cpu"))
+            pair = cc.make_cluster_intersectors(s, stream=stream)
+            reset(*counts)
+            with torch.no_grad():
+                s_imgs[platform] = render_image(s, c, intersectors=pair).cpu().numpy()
+            if platform == "cuda":
+                used = {k: n for k, n in cc.LAUNCHES.items() if n}
+                route = pair[0].route
+                if set(used) != {"cull", *cc.ROUTES[route]}:
+                    raise AssertionError(f"atrium(2_200) route {route} launched {used}")
+                cf, af = pair
+                cf.prefers_ray_sort = True       # the full path's spatial sorts
+                ys, xs = torch.meshgrid(torch.arange(90, device=dev),
+                                        torch.arange(160, device=dev), indexing="ij")
+                args = (s, c.vp, c.la, c.up, c.yview, 160, 90, xs.reshape(-1), ys.reshape(-1),
+                        0, 2, c.seed, 2, c.background, cf, af)
+                with torch.no_grad():
+                    plain_order = render_samples(*args, compact=False)
+                    compacted = render_samples(*args, compact=True)
+                sync()
+                if not torch.equal(bits(plain_order), bits(compacted)):
+                    raise AssertionError("compacted atrium render differs from the uncompacted one")
+                print(f"[render] atrium(2_200) 160x90 on the card, route {route} ({used}): "
+                      "compact=True (spatial sorts) bitwise equal to compact=False")
+        sync()
+        assert_render_close(s_imgs["cuda"], s_imgs["cpu"],
+                            f"atrium(2_200) 160x90 route {route}", flipped_mean_rel=1e-3)
+
+    # --- phase 3c: mid-size renders through auto ---------------------------------
+    m_renderer, m_launches, m_total, m_mem, m_exported = cli_render(
+        cli, repo, counts,
+        ["input", f"synthetic:atrium:{MID_TRIS}", "intersector", "auto",
+         "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
+         "k", str(ATRIUM_K), *cam], "atrium_262k.exr")
+    add_launches(m_launches)
+    resident = {"cull": 2 * ATRIUM_K, "closest_resident": ATRIUM_K, "any_resident": ATRIUM_K}
+    check_atrium_render(m_renderer, m_exported, m_launches, resident,
+                        f"atrium:{MID_TRIS}", ATRIUM_RES)
+    if m_renderer.intersectors[0].route != "resident" or \
+            not m_renderer.intersectors[0].prefers_compaction:
+        raise AssertionError("atrium:262144 did not take the resident route with compaction")
+    report_frame(card, f"atrium:{MID_TRIS} 1280x720", m_renderer, m_total, m_mem)
+    profile_frame(m_renderer, card)
+    del m_renderer, m_exported
+    torch.cuda.empty_cache()
+    n_renderer, n_launches, n_total, n_mem, n_exported = cli_render(
+        cli, repo, counts,
+        ["input", f"synthetic:atrium:{NANO_TRIS}", "intersector", "auto", "xres", "1024",
+         "yres", "1024", "samples", "1", "k", str(ATRIUM_K), *cam], "atrium_19k.exr")
+    add_launches(n_launches)
+    check_atrium_render(n_renderer, n_exported, n_launches, resident,
+                        f"atrium:{NANO_TRIS}", (1024, 1024))
+    if n_renderer.intersectors[0].route != "resident" or \
+            n_renderer.intersectors[0].prefers_compaction:
+        raise AssertionError("atrium:19000 did not take the resident route without compaction")
+    report_frame(card, f"atrium:{NANO_TRIS} 1024x1024", n_renderer, n_total, n_mem)
+    profile_frame(n_renderer, card)
+    del n_renderer, n_exported
+    torch.cuda.empty_cache()
 
     # --- phase 4: timings ---------------------------------------------------------
     timings = {}
@@ -634,56 +1124,132 @@ def main() -> int:
               f"{36 if name == 'cornell' else SOUP_TRIS} B0={B0}: kernel {k_us:.1f} us "
               f"(turns {ks[0]:.1f}, {ks[1]:.1f}), plain {p_us:.1f} us "
               f"(turns {ps[0]:.1f}, {ps[1]:.1f}) per launch")
-    for (kern, name), val in ctimings.items():
-        nB0 = ctimings[("rows", name)][0]
-        if kern == "rows":
-            print(f"[timing] {card}: atrium {name}: B0={val[0]} Le={val[1]}, trip p50 {val[2]} "
-                  f"on all rows, {val[3]} on the timed sample")
-        elif kern.endswith("all rows"):
-            print(f"[timing] {card}: {kern} atrium {name} B0={nB0}: kernel {val:.1f} us per launch")
-        else:
-            k_us, p_us, ks, ps = val
-            rows = f"B0={nB0}" if kern == "cull" else f"sample of {ROW_SAMPLE} rows"
-            print(f"[timing] {card}: {kern} atrium {name} {rows}: kernel {k_us:.1f} us "
-                  f"(turns {ks[0]:.1f}, {ks[1]:.1f}), plain {p_us:.1f} us "
-                  f"(turns {ps[0]:.1f}, {ps[1]:.1f}) per launch")
+    for kid, (b_ms, b_by) in zip(("K1", "K2"), dense_bound):
+        print(f"[timing] {card}: {kid} bound on the cornell queries {b_ms * 1e3:.1f} us ({b_by})")
+    print_cluster_timings(card, "atrium 481k", ctimings)
+    print_cluster_timings(card, f"atrium:{MID_TRIS}", mtimings)
     ms_per_sample = st["seconds"] * 1e3 / cfg.samples
     print(f"[timing] {card}: cornell render 768x768 k6 {cfg.samples} spp: "
           f"{st['seconds']:.3f} s, {ms_per_sample:.2f} ms/sample, "
           f"{st['useful_rays_per_sec'] / 1e6:.1f} useful Mray/s, "
-          f"occupancy {st['occupancy']:.3f}; peak device memory {peak / 2**20:.1f} MiB")
-    ph = a_renderer.phase_seconds
-    print(f"[timing] {card}: atrium 1280x720 k3 1 spp (CLI, cold): scene {ph['scene']:.2f} s, "
-          f"clusters + buffers {ph['intersectors']:.2f} s, render {a_st['seconds'] * 1e3:.1f} ms/frame "
-          f"({a_st['useful_rays_per_sec'] / 1e6:.2f} useful Mray/s, occupancy "
-          f"{a_st['occupancy']:.3f}), export {ph['export']:.2f} s, CLI total {a_total:.2f} s; "
-          f"peak device memory {a_peak / 2**20:.1f} MiB")
-    # The same frame again, warm, from the CLI's renderer.
-    a_renderer.ray_trace(a_cfg.vp, a_cfg.la, a_cfg.up, a_cfg.yview)
-    print(f"[timing] {card}: atrium frame warm: {a_renderer.last_stats['seconds'] * 1e3:.1f} "
-          f"ms/frame ({a_renderer.last_stats['useful_rays_per_sec'] / 1e6:.2f} useful Mray/s)")
+          f"occupancy {st['occupancy']:.3f}; {mem_text(mem)}")
 
-    def entry(name, route, source, replaces, n, e, us):
+    # --- phase 5: gradients -------------------------------------------------------
+    grad_checks = (
+        ("cornell 64x64 x 4 spp x k3 (K1)", lambda d: build_scene_tensors(cornell_box(), device=d),
+         CORNELL_CAMERA, (64, 64), 4, 3, ("kd", "ke", "tri_v0"), None, "dense"),
+        ("atrium(2_200) 64x36 x 2 spp x k2 (K4)",
+         lambda d: build_scene_tensors(atrium(2_200, seed=5), device=d),
+         ATRIUM_CAMERA, (64, 36), 2, 2, ("kd", "ke", "tex_data"), False, "resident"),
+        ("atrium(2_200) 64x36 x 2 spp x k2 (K6)",
+         lambda d: build_scene_tensors(atrium(2_200, seed=5), device=d),
+         ATRIUM_CAMERA, (64, 36), 2, 2, ("kd", "ke", "tex_data"), True, "stream"),
+    )
+    for what, make_scene, gcam, res, spp, depth, fields, stream, route in grad_checks:
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            scene = make_scene(d)
+            if route == "dense":
+                def pair_of(s):
+                    return make_intersectors(s, "dense")
+            else:
+                gca = build_clusters(*(x.cpu().numpy() for x in
+                                       (scene.tri_v0, scene.tri_v1, scene.tri_v2)))
+
+                def pair_of(s, gca=gca, stream=stream):
+                    pair = cc.make_cluster_intersectors(s, clusters=gca, stream=stream)
+                    if pair[0].route != route:
+                        raise AssertionError(f"{what}: route {pair[0].route} != {route}")
+                    return pair
+            loss, grads, launches, seconds, _ = grad_run(
+                scene, gcam, res, spp, depth, fields, pair_of, counts=counts)
+            out[d.type] = (loss, grads)
+            if d.type == "cuda":
+                print(f"[grad] {what} on the card: launches {launches}, {seconds:.3f} s")
+                want_kernel = {"dense": "closest", "resident": "closest_resident",
+                               "stream": "closest_cluster"}[route]
+                if not launches.get(want_kernel):
+                    raise AssertionError(f"{what}: no {want_kernel} launch in fwd+bwd")
+        compare_grads(what, out["cuda"], out["cpu"])
+
+    # (ii) full width: the 262k atrium, fwd+bwd w.r.t. (kd, ke), checkpointed,
+    # on a scene built afresh (phase 2c's was let go before the renders).
+    mid = build_scene_tensors(atrium(MID_TRIS), device=dev)
+    def mid_pair(s):
+        return make_intersectors(s, "cluster", clusters=mca)
+
+    for turn in ("first", "second"):
+        loss, grads, g_launches, seconds, g_mem = grad_run(
+            mid, ATRIUM_CAMERA, ATRIUM_RES, 1, ATRIUM_K, ("kd", "ke"), mid_pair,
+            checkpoint=True, counts=counts)
+        lights = mid.light_ids.long().cpu()
+        lit_ke = float(grads["ke"][lights].abs().sum())
+        print(f"[grad] {card}: atrium:{MID_TRIS} 1280x720 x 1 spp x k3 fwd+bwd w.r.t. (kd, ke), "
+              f"checkpoint=True, {turn}: {seconds * 1e3:.1f} ms, {mem_text(g_mem)}, "
+              f"loss {loss}, launches {g_launches}; "
+              f"sum|d/dke| over the lights {lit_ke}, sum|d/dkd| {float(grads['kd'].abs().sum())}")
+        finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        if not (finite and lit_ke > 0 and g_launches.get("closest_resident")
+                and g_launches.get("any_resident") and g_launches.get("cull")):
+            raise AssertionError("full-width gradients are not finite and lit, or skipped K3/K4/K5")
+    profile(lambda: grad_run(mid, ATRIUM_CAMERA, ATRIUM_RES, 1, ATRIUM_K, ("kd", "ke"),
+                             mid_pair, checkpoint=True),
+            f"atrium:{MID_TRIS} 1280x720 x 1 spp x k3 fwd+bwd, checkpoint=True", card)
+    del mid
+    torch.cuda.empty_cache()
+
+    # (iii) Cornell 512x512 x 16 spp x k3 fwd+bwd through K1.
+    for turn in ("first", "second"):
+        loss, grads, g_launches, seconds, g_mem = grad_run(
+            cornell, CORNELL_CAMERA, (512, 512), 16, 3, ("kd", "ke"),
+            lambda s: make_intersectors(s, "dense"), checkpoint=True, counts=counts)
+        print(f"[grad] {card}: cornell 512x512 x 16 spp x k3 fwd+bwd w.r.t. (kd, ke), "
+              f"checkpoint=True, {turn}: {seconds * 1e3:.1f} ms, {mem_text(g_mem)}, "
+              f"loss {loss}, launches {g_launches}")
+        if not (all(bool(torch.isfinite(g).all()) for g in grads.values())
+                and float(grads["ke"].abs().sum()) > 0 and g_launches.get("closest")):
+            raise AssertionError("Cornell 512x512 gradients are not finite and lit")
+    profile(lambda: grad_run(cornell, CORNELL_CAMERA, (512, 512), 2, 3, ("kd", "ke"),
+                             lambda s: make_intersectors(s, "dense"), checkpoint=True),
+            "cornell 512x512 x 2 spp x k3 fwd+bwd, checkpoint=True", card)
+
+    def entry(name, route, source, replaces, e, ms, plain_ms, bnd):
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": e, "ms": us[0] / 1e3, "plain_ms": us[1] / 1e3}
+                "launches": main_launches[name if name not in ("closest_dense", "any_dense")
+                                          else name.split("_")[0]],
+                "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
 
+    def visit_entry(name, replaces, t):
+        return entry(name, "cuda", "chiaroscuro_tpu_torch/csrc/intersect_cluster.cu",
+                     replaces, cluster_errs[name], t["us"] / 1e3, t["plain_us"] / 1e3, t["bound"])
+
+    ct = timings[("closest", "cornell")]
+    at = timings[("any", "cornell")]
+    cull_t = ctimings[("cull", "primary")]
     kernels = [
         entry("closest_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
-              "chiaroscuro_tpu/ops/intersect_pallas.py:206", launches["closest"], err,
-              timings[("closest", "cornell")]),
+              "chiaroscuro_tpu/ops/intersect_pallas.py:206", err, ct[0] / 1e3, ct[1] / 1e3,
+              dense_bound[0]),
         entry("any_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
-              "chiaroscuro_tpu/ops/intersect_pallas.py:339", launches["any"], err,
-              timings[("any", "cornell")]),
+              "chiaroscuro_tpu/ops/intersect_pallas.py:339", err, at[0] / 1e3, at[1] / 1e3,
+              dense_bound[1]),
         entry("cull", "triton", "chiaroscuro_tpu_torch/ops/cull_triton.py",
-              "chiaroscuro_tpu/ops/cluster_pallas.py:310", a_launches["cull"],
-              cluster_errs["cull"], ctimings[("cull", "primary")]),
-        entry("closest_cluster", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_cluster.cu",
-              "chiaroscuro_tpu/ops/cluster_pallas.py:627", a_launches["closest_cluster"],
-              cluster_errs["closest_cluster"], ctimings[("closest_cluster", "primary")]),
-        entry("any_cluster", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_cluster.cu",
-              "chiaroscuro_tpu/ops/cluster_pallas.py:750", a_launches["any_cluster"],
-              cluster_errs["any_cluster"], ctimings[("any_cluster", "shadow")]),
+              "chiaroscuro_tpu/ops/cluster_pallas.py:310", cluster_errs["cull"],
+              cull_t["us"] / 1e3, cull_t["plain_us"] / 1e3, cull_t["bound"]),
+        visit_entry("closest_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:485",
+                    mtimings[("closest_resident", "primary")]),
+        visit_entry("any_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:550",
+                    mtimings[("any_resident", "shadow")]),
+        visit_entry("closest_cluster", "chiaroscuro_tpu/ops/cluster_pallas.py:627",
+                    ctimings[("closest_cluster", "primary")]),
+        visit_entry("any_cluster", "chiaroscuro_tpu/ops/cluster_pallas.py:750",
+                    ctimings[("any_cluster", "shadow")]),
     ]
+    missing = [k["name"] for k in kernels if not k["launches"]]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main paths: {missing}")
+    print(f"[smoke] main-path launches {main_launches}; {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

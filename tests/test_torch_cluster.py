@@ -1,6 +1,6 @@
-"""The cluster path on the CPU: the plain K3 cull and K6/K7 visits against
-the JAX package and the brute oracle, and the intersector contract (the
-Triton/CUDA kernels against these plain versions on a card:
+"""The cluster path on the CPU: the plain K3 cull and the plain K4-K7 visits
+against the JAX package and the brute oracle, and the intersector contract
+(the Triton/CUDA kernels against these plain versions on a card:
 tests/test_torch_cuda.py).
 
 Both packages cull and visit the very same clusters: the JAX
@@ -10,8 +10,8 @@ to it).  Tolerances:
 
 - the cull (meta, ids, nears, cutoff): exact — (c - o) * inv, min/max and
   compares have no multiply-add for XLA to contract;
-- the visits against JAX's interpreted streaming kernels: hit and occluded
-  equal, ids equal or a tie in t, attributes exact where ids agree, t to
+- the visits against JAX's interpreted streaming and resident kernels
+  (one plain version serves both routes): hit and occluded equal, ids equal or a tie in t, attributes exact where ids agree, t to
   rtol 2e-6 (the dense kernels' bound, tests/test_torch_intersect_dense.py;
   found here 9.0e-7) and u, v to atol 5e-6 (found 2.4e-6, above the 4.8e-7
   found for the dense kernels on Cornell: XLA contracts the
@@ -308,12 +308,15 @@ def test_order_hits_sort_is_stable_on_ties():
 
 
 def test_stream_rule_and_limits():
+    """The JAX rule: resident K4/K5 while K x M x 48 x 4 B <= 72 MiB.  The
+    sizes of the atrium scenes the port renders (K at M = 128)."""
     assert cc.streams_by_budget(3_760, 128)           # the 481k atrium: 88.1 MiB
     assert not cc.streams_by_budget(22, 128)          # atrium(2_200)
-    fake_gpu = types.SimpleNamespace(n_tris=2_720, device=torch.device("cuda", 0))
+    assert not cc.streams_by_budget(148, 128)         # atrium:19000, 3.5 MiB
+    assert not cc.streams_by_budget(2_043, 128)       # atrium:262144, 47.9 MiB
+    assert not cc.streams_by_budget(3_072, 128)       # 72.0 MiB: the last resident K
+    assert cc.streams_by_budget(3_073, 128)
     small = types.SimpleNamespace(K=22, M=128)
-    with pytest.raises(NotImplementedError, match="K4/K5.*ROADMAP item 17"):
-        cc.make_cluster_intersectors(fake_gpu, clusters=small)
     with pytest.raises(ValueError, match="2\\^24"):
         cc.make_cluster_intersectors(
             types.SimpleNamespace(n_tris=2**24, device=torch.device("cpu")),
@@ -327,15 +330,21 @@ def test_wrappers_take_plain_versions_on_cpu(atrium_case):
     assert not cf.prefers_compaction and not cf.prefers_ray_sort
     res = cf.planar_fn(o3, d3)
     af.planar_fn(o3, d3, tmax, excl)
-    assert cc.LAUNCHES == before == {"cull": 0, "closest_cluster": 0, "any_cluster": 0}
+    assert cc.LAUNCHES == before == dict.fromkeys(before, 0)
+    assert set(before) == {"cull", "closest_resident", "any_resident",
+                           "closest_cluster", "any_cluster"}
     assert res.t.shape == (4, 128) and res.attrs["kd"].shape == (3, 4, 128)
 
 
 def test_wrapper_checks_inputs(atrium_case):
+    """Shapes, types and layout are checked; the cull takes its inputs
+    detached (its lists only steer the visits); the visit wrappers take no
+    gradient themselves (closest_cluster_diff does)."""
     _, scene, jca, o3, d3, tmax, excl = atrium_case
     bmin, bmax = torch.from_numpy(jca.bbox_min), torch.from_numpy(jca.bbox_max)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        cc.cull(o3.clone().requires_grad_(), d3, bmin, bmax, 8)
+    graded = cc.cull(o3.clone().requires_grad_(), d3, bmin, bmax, 8)
+    for a, b in zip(graded, cc.cull(o3, d3, bmin, bmax, 8)):
+        assert torch.equal(a, b) and not a.requires_grad
     with pytest.raises(ValueError, match="Le="):
         cc.cull(o3, d3, bmin, bmax, 0)
     lists = cc.cull(o3, d3, bmin, bmax, 8)
@@ -344,5 +353,66 @@ def test_wrapper_checks_inputs(atrium_case):
         cc.any_cluster(*lists, o3, d3, tmax, excl.long(), packed)
     with pytest.raises(ValueError, match="M a multiple of 4"):
         cc.closest_cluster(*lists, o3, d3, packed[..., :30].contiguous(), attrs)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+    with pytest.raises(ValueError, match="closest_cluster_diff"):
         cc.closest_cluster(*lists, o3, d3, packed, attrs.clone().requires_grad_())
+    with pytest.raises(ValueError, match="closest_cluster_diff"):
+        cc.closest_resident(*lists, o3.clone().requires_grad_(), d3, packed, attrs)
+    with pytest.raises(ValueError, match="kernels only"):
+        cc.closest_resident(*lists, o3, d3, packed, attrs,
+                            visits=torch.zeros(o3.shape[1], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The resident route (K4/K5).
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=[4, None])
+def resident_visits(request, atrium_case):
+    """JAX's interpreted resident kernels (``stream=False``) and the port's
+    resident pair over the same clusters; Lmax 4 overflows every row."""
+    sa, scene, jca, o3, d3, tmax, excl = atrium_case
+    lmax = request.param
+    jcf, jaf = jax_make_cluster_intersectors(
+        sa, M=M, Lmax=lmax, interpret=True, stream=False, clusters=jca)
+    j = {k: jnp.asarray(v.numpy()) for k, v in
+         dict(o3=o3, d3=d3, tmax=tmax, excl=excl).items()}
+    ref = jcf.planar_fn(j["o3"], j["d3"])
+    ref_occ = jaf.planar_fn(j["o3"], j["d3"], j["tmax"], j["excl"])
+    cf, af = cc.make_cluster_intersectors(
+        scene, Lmax=lmax, stream=False,
+        clusters=cluster_arrays_from_numpy(dataclasses.asdict(jca)))
+    assert cf.route == af.route == "resident"
+    got = cf.planar_fn(o3, d3)
+    occ = af.planar_fn(o3, d3, tmax, excl)
+    return scene, got, occ, ref, ref_occ
+
+
+def test_plain_closest_visit_matches_jax_resident(resident_visits):
+    """The plain K4 against JAX's interpreted ``_closest_kernel``, under the
+    module's visit tolerances."""
+    test_plain_closest_visit_matches_jax(resident_visits)
+
+
+def test_plain_any_visit_matches_jax_resident(resident_visits):
+    test_plain_any_visit_matches_jax(resident_visits)
+
+
+def test_route_follows_the_stream_rule(atrium_case, monkeypatch):
+    """``stream=None`` picks the route by :func:`streams_by_budget` (with
+    the budget cut below this scene's matrix for the streaming side),
+    ``stream=False`` no longer raises, and either forced route returns the
+    same hits."""
+    _, scene, jca, o3, d3, _, _ = atrium_case
+    ca = cluster_arrays_from_numpy(dataclasses.asdict(jca))
+    cf, af = make_intersectors(scene, "cluster", clusters=ca)
+    assert cf.route == af.route == "resident"
+    res = {}
+    for stream in (False, True):
+        f, _ = cc.make_cluster_intersectors(scene, clusters=ca, stream=stream)
+        assert f.route == ("stream" if stream else "resident")
+        res[stream] = f.planar_fn(o3, d3)
+    for a, b in zip(res[False][:5], res[True][:5]):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(cc, "RESIDENT_BUDGET_BYTES", ca.K * ca.M * cc.PACK_W * 4 - 1)
+    assert make_intersectors(scene, "cluster", clusters=ca)[0].route == "stream"

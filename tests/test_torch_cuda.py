@@ -1,6 +1,7 @@
 """The CUDA and Triton kernels against their plain torch versions, on a
-card: K1/K2 (dense), K3 (the cluster cull) and K6/K7 (the streaming
-cluster visits).
+card: K1/K2 (dense), K3 (the cluster cull), K4/K5 (the resident cluster
+visits) and K6/K7 (the streaming ones); K4/K5 also against K6/K7, and the
+card's gradients against the CPU's.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -121,9 +122,9 @@ def test_cluster_kernels_equal_plain_on_card(lmax, cuda_device):
     got = cc.closest_cluster(*lists, q["o3"], q["d3"], packed, attrs)
     occ = cc.any_cluster(*slists, q["o3"], q["d3"], q["tmax"], excl, packed)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES == {"cull": before["cull"] + 2,
-                           "closest_cluster": before["closest_cluster"] + 1,
-                           "any_cluster": before["any_cluster"] + 1}
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "cull": 2, "closest_resident": 0, "any_resident": 0, "closest_cluster": 1,
+        "any_cluster": 1}
     for a, b in zip(lists, cc.cull_plain(q["o3"], q["d3"], bmin, bmax, Le)):
         assert torch.equal(a, b)
     for a, b in zip(slists, cc.cull_plain(q["o3"], q["d3"], bmin, bmax, Le, tmax=q["tmax"])):
@@ -140,11 +141,93 @@ def test_cluster_kernels_equal_plain_on_card(lmax, cuda_device):
 @pytest.mark.cuda
 def test_dispatch_resolves_cluster_on_card(cuda_device):
     """Above 4,096 triangles ``auto`` takes the cluster path on a card; a
-    scene whose packed matrix fits the residency budget would need the
-    resident K4/K5, which raise rather than quietly streaming."""
+    scene whose packed matrix fits the residency budget runs the resident
+    K4/K5, and ``stream=True`` forces K6/K7."""
     scene = build_scene_tensors(atrium(6_000), device=cuda_device)
     assert scene.n_tris > 4096 and resolve_auto(scene.n_tris, on_gpu=True) == "cluster"
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        make_intersectors(scene, "auto")
+    cf, af = make_intersectors(scene, "auto")
+    assert cf.route == af.route == "resident"
     cf, af = cc.make_cluster_intersectors(scene, stream=True)
-    assert not cf.prefers_compaction
+    assert cf.route == "stream" and not cf.prefers_compaction
+
+
+def _atrium_lists(dev, lmax):
+    """atrium(2_200, seed=5) at M = 32 with seeded rays and both lists."""
+    scene = build_scene_tensors(atrium(2_200, seed=5), device=dev)
+    ca = build_clusters(*(x.cpu().numpy() for x in (scene.tri_v0, scene.tri_v1, scene.tri_v2)), 32)
+    packed, attrs = cc.derive_buffers(scene, ca)
+    bmin = torch.from_numpy(ca.bbox_min).to(dev)
+    bmax = torch.from_numpy(ca.bbox_max).to(dev)
+    rng = np.random.default_rng(6)
+    lo, hi = scene.world_min.cpu().numpy(), scene.world_max.cpu().numpy()
+    o3 = rng.uniform(lo[:, None, None], hi[:, None, None], (3, B0, 128))
+    q = dict(o3=o3, d3=rng.normal(size=(3, B0, 128)), tmax=rng.uniform(0.1, 15.0, (B0, 128)))
+    q = {k: torch.tensor(x, dtype=torch.float32, device=dev) for k, x in q.items()}
+    q["excl"] = torch.tensor(rng.integers(-1, scene.n_tris, (B0, 128)), dtype=torch.int32,
+                             device=dev)
+    Le = min(lmax, ca.K)
+    q["lists"] = cc.cull(q["o3"], q["d3"], bmin, bmax, Le)
+    q["slists"] = cc.cull(q["o3"], q["d3"], bmin, bmax, Le, tmax=q["tmax"])
+    return packed, attrs, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lmax", [6, 1536])
+def test_resident_kernels_equal_streaming_and_plain(lmax, cuda_device):
+    """K4 bitwise equal to K6 and K5 to K7 on the same lists (the same
+    function by two memory routes), and both to the plain versions; Lmax 6
+    overflows rows into phase 2.  The per-row visit counts: phase 1 and 2
+    together never exceed trip + K, and K4 (early exit voted every 8
+    visits) visits at least as many clusters as K6 (voted every visit)."""
+    packed, attrs, q = _atrium_lists(cuda_device, lmax)
+    o3, d3, lists, slists = q["o3"], q["d3"], q["lists"], q["slists"]
+    before = dict(cc.LAUNCHES)
+    v4, v5, v6, v7 = (torch.zeros(B0, dtype=torch.int32, device=cuda_device) for _ in range(4))
+    k4 = cc.closest_resident(*lists, o3, d3, packed, attrs, visits=v4)
+    k6 = cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=v6)
+    k5 = cc.any_resident(*slists, o3, d3, q["tmax"], q["excl"], packed, visits=v5)
+    k7 = cc.any_cluster(*slists, o3, d3, q["tmax"], q["excl"], packed, visits=v7)
+    torch.cuda.synchronize()
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "cull": 0, "closest_resident": 1, "any_resident": 1, "closest_cluster": 1,
+        "any_cluster": 1}
+    want = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
+    for field, a, b, c in zip(("t", "id", "u", "v", "attrs"), k4, k6, want):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), field
+    assert torch.equal(k5, k7)
+    assert torch.equal(k5, cc.any_cluster_plain(*slists, o3, d3, q["tmax"], q["excl"], packed))
+    assert bool(lists[0][:, 1].any()) == (lmax == 6)
+    K = packed.shape[0]
+    for got, ref, meta in ((v4, v6, lists[0]), (v5, v7, slists[0])):
+        assert bool((got >= ref).all()) and bool((ref >= 0).all())
+        assert bool((got <= meta[:, 0] + K).all()) and int(ref.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_card_gradients_match_cpu(cuda_device):
+    """kd/ke/tri_v0 gradients of a weighted Cornell loss through K1 on the
+    card against the same loss on the CPU (the plain K1 in the same
+    autograd Function): rtol 1e-3, atol 1e-4 x the largest entry (CUDA and
+    CPU transcendentals differ by ulps, ROADMAP section 3)."""
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA as cam
+    from chiaroscuro_tpu_torch.scene.scene_arrays import params_from_numpy
+
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = build_scene_tensors(cornell_box(), device=dev)
+        p = params_from_numpy({k: getattr(scene, k).cpu().numpy()
+                               for k in ("kd", "ke", "tri_v0")}, dev)
+        s = scene.replace(**p)
+        cf, af = make_intersectors(s, "dense")
+        ys, xs = torch.meshgrid(torch.arange(16, device=dev), torch.arange(16, device=dev),
+                                indexing="ij")
+        img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], 16, 16,
+                             xs.reshape(-1), ys.reshape(-1), 0, 2, 0, 3, (0.0, 0.0, 0.0),
+                             cf, af)
+        (img * torch.linspace(0.5, 1.5, img.numel(), device=dev).reshape(img.shape)).mean().backward()
+        grads[dev.type] = {k: v.grad.cpu() for k, v in p.items()}
+    for k, ref in grads["cpu"].items():
+        scale = float(ref.abs().max())
+        assert scale > 0, k
+        torch.testing.assert_close(grads["cuda"][k], ref, rtol=1e-3, atol=1e-4 * scale)

@@ -1,4 +1,6 @@
 """The port imports torch and numpy only: never jax, never chiaroscuro_tpu.
+Every module is imported, and the resident visits and the gradient entry
+points by name.
 
 Both checks run in a fresh interpreter, since this test process has
 already imported jax (conftest.py).
@@ -20,6 +22,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 names = [n for n in names if not n.endswith("__main__")]
 for n in names:
     importlib.import_module(n)
+from chiaroscuro_tpu_torch.ops.cluster_cuda import (
+    any_resident, closest_cluster_diff, closest_resident)
+from chiaroscuro_tpu_torch.ops.intersect_cuda import closest_hit
+from chiaroscuro_tpu_torch.scene.scene_arrays import params_from_numpy
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "chiaroscuro_tpu"
              or m.startswith("chiaroscuro_tpu."))

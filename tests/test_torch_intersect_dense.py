@@ -179,12 +179,18 @@ def test_row_major_interface_matches_brute_oracle():
 
 
 def test_wrapper_checks_inputs():
+    """Shapes, types and layout are checked.  K1's wrapper is
+    differentiable (the closest-hit Function); K2 takes its inputs
+    detached."""
     scene = _port_scene(SCENES["cornell"]())
     rows = ic._prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
     attrs = ic._prep_attrs(scene)
     o3 = torch.zeros(3, 2, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        ic.closest_dense(None, o3.clone().requires_grad_(), o3, rows, attrs)
+    t, tid, u, _, am = ic.closest_dense(None, o3.clone().requires_grad_(), o3, rows, attrs)
+    assert t.requires_grad and am.requires_grad and not tid.requires_grad
+    occ = ic.any_dense(None, o3.clone().requires_grad_(), o3, torch.zeros(2, 128),
+                       torch.zeros(2, 128, dtype=torch.int32), rows.clone().requires_grad_())
+    assert occ.dtype == torch.bool and not occ.requires_grad
     with pytest.raises(ValueError, match="dtype"):
         ic.closest_dense(None, o3.double(), o3, rows, attrs)
     with pytest.raises(ValueError, match="shape"):
