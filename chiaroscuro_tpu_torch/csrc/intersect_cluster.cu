@@ -396,7 +396,7 @@ int any_resident_launch(const void* meta, const void* ids, const void* nears,
                            visits_out, stream);
 }
 
-const char* cluster_error_string(int code) {
+const char* intersect_cluster_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

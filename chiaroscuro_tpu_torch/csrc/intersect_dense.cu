@@ -174,7 +174,7 @@ int any_dense_launch(const void* live, const void* o3, const void* d3,
   return (int)cudaGetLastError();
 }
 
-const char* dense_error_string(int code) {
+const char* intersect_dense_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -51,7 +51,7 @@ import torch
 
 from chiaroscuro_tpu_torch.accel.clusters import ClusterArrays, build_clusters
 from chiaroscuro_tpu_torch.geometry.intersect import ClosestHit
-from chiaroscuro_tpu_torch.ops.cuda_build import build_library
+from chiaroscuro_tpu_torch.ops.cuda_build import bind, check_launch
 from chiaroscuro_tpu_torch.ops.intersect_cuda import (
     ATTR_K,
     BIG,
@@ -307,18 +307,12 @@ def build() -> tuple:
     """Build and load ``csrc/intersect_cluster.cu`` (``ops/cuda_build.py``);
     returns ``(lib, info)`` as :func:`~chiaroscuro_tpu_torch.ops.
     intersect_cuda.build` does.  A failed build raises."""
-    lib, info = build_library("intersect_cluster")
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    launches = {}
     for route in ("cluster", "resident"):
-        closest = getattr(lib, f"closest_{route}_launch")
-        closest.argtypes = [vp] * 8 + [ci] * 4 + [vp] * 7
-        closest.restype = ci
-        anyf = getattr(lib, f"any_{route}_launch")
-        anyf.argtypes = [vp] * 9 + [ci] * 4 + [vp] * 3
-        anyf.restype = ci
-    lib.cluster_error_string.argtypes = [ci]
-    lib.cluster_error_string.restype = ctypes.c_char_p
-    return lib, info
+        launches[f"closest_{route}_launch"] = [vp] * 8 + [ci] * 4 + [vp] * 7
+        launches[f"any_{route}_launch"] = [vp] * 9 + [ci] * 4 + [vp] * 3
+    return bind("intersect_cluster", launches)
 
 
 def _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device):
@@ -337,12 +331,6 @@ def _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device):
         raise ValueError(f"packed (K={K}, M={M}) with lists of width {Le}: "
                          "need 1 <= Le <= K and M a multiple of 4 up to 1024")
     return B0, Le
-
-
-def _raise_on(lib, err, name):
-    if err != 0:
-        msg = lib.cluster_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
 def _visits_out(visits, B0, device):
@@ -392,7 +380,7 @@ def _closest_visit(kernel, meta, ids, nears, cutoff, o3, d3, packed, attrs,
             attrs.data_ptr(), B0, Le, K, M, t.data_ptr(), tid.data_ptr(),
             u.data_ptr(), v.data_ptr(), am.data_ptr(), visits_ptr, stream,
         )
-    _raise_on(lib, err, kernel)
+    check_launch(lib, err, kernel)
     LAUNCHES[kernel] += 1
     return t, tid, u, v, am
 
@@ -422,7 +410,7 @@ def _any_visit(kernel, meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
             excl.data_ptr(), packed.data_ptr(), B0, Le, K, M, occ.data_ptr(),
             visits_ptr, stream,
         )
-    _raise_on(lib, err, kernel)
+    check_launch(lib, err, kernel)
     LAUNCHES[kernel] += 1
     return occ
 

@@ -4,9 +4,10 @@ Each ``csrc/<stem>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``chiaroscuro_tpu_torch/_build/lib<stem>_<hash>.so`` at first use, where the
 hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
 so an edited source is rebuilt and an unchanged one is reused.  The library
-has a plain C interface and is loaded with ``ctypes``; the caller declares
-the argument types.  A failed build raises with nvcc's output: there is no
-fallback.
+has a plain C interface and is loaded with ``ctypes``; :func:`bind` declares
+the argument types the caller gives, and :func:`check_launch` turns a
+launch's error code into an exception.  A failed build raises with nvcc's
+output: there is no fallback.
 """
 
 from __future__ import annotations
@@ -79,3 +80,26 @@ def build_library(stem: str) -> tuple:
         os.replace(tmp, so)
         report = proc.stderr + proc.stdout
     return ctypes.CDLL(so), {"path": so, "seconds": seconds, "ptxas": report}
+
+
+def bind(stem: str, launches: dict) -> tuple:
+    """:func:`build_library`, then the argument types of each launch entry
+    point in ``launches`` ({symbol: argtypes}; each returns a CUDA error
+    code) and of ``<stem>_error_string``, which every ``csrc`` library
+    exports.  Returns ``(lib, info)``; :func:`check_launch` reads the
+    error string."""
+    lib, info = build_library(stem)
+    for symbol, argtypes in launches.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.error_string = getattr(lib, f"{stem}_error_string")
+    lib.error_string.argtypes, lib.error_string.restype = [ctypes.c_int], ctypes.c_char_p
+    return lib, info
+
+
+def check_launch(lib, err: int, name: str) -> None:
+    """Raise unless a launch entry point of a :func:`bind` library returned
+    0 (cudaSuccess)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")

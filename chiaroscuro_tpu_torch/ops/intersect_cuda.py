@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from chiaroscuro_tpu_torch.geometry.intersect import ClosestHit
-from chiaroscuro_tpu_torch.ops.cuda_build import build_library
+from chiaroscuro_tpu_torch.ops.cuda_build import bind, check_launch
 
 FLT_EPS = float(np.finfo(np.float32).eps)
 BIG = 3.0e38
@@ -249,15 +249,11 @@ def build() -> tuple:
     the library path, the build seconds (0.0 when an earlier build was
     reused) and nvcc's ``-Xptxas -v`` report.  A failed build raises with
     nvcc's output."""
-    lib, info = build_library("intersect_dense")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.closest_dense_launch.argtypes = [vp] * 5 + [ci, ci] + [vp] * 6
-    lib.closest_dense_launch.restype = ci
-    lib.any_dense_launch.argtypes = [vp] * 6 + [ci, ci] + [vp] * 2
-    lib.any_dense_launch.restype = ci
-    lib.dense_error_string.argtypes = [ci]
-    lib.dense_error_string.restype = ctypes.c_char_p
-    return lib, info
+    return bind("intersect_dense", {
+        "closest_dense_launch": [vp] * 5 + [ci, ci] + [vp] * 6,
+        "any_dense_launch": [vp] * 6 + [ci, ci] + [vp] * 2,
+    })
 
 
 def _check(name, x, shape, dtype, device):
@@ -286,12 +282,6 @@ def _launch_device(*tensors) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     return device
-
-
-def _raise_on(lib, err, name):
-    if err != 0:
-        msg = lib.dense_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
 def closest_dense(live, o3, d3, tri_rows, attrs):
@@ -335,7 +325,7 @@ def _closest_dense_launch(live, o3, d3, tri_rows, attrs):
             attrs.data_ptr(), B0, T, t.data_ptr(), tid.data_ptr(),
             u.data_ptr(), v.data_ptr(), am.data_ptr(), stream,
         )
-    _raise_on(lib, err, "closest_dense")
+    check_launch(lib, err, "closest_dense")
     LAUNCHES["closest"] += 1
     return t, tid, u, v, am
 
@@ -366,7 +356,7 @@ def any_dense(live, o3, d3, tmax, excl, tri_rows):
             excl.data_ptr(), tri_rows.data_ptr(), B0, T, occ.data_ptr(),
             stream,
         )
-    _raise_on(lib, err, "any_dense")
+    check_launch(lib, err, "any_dense")
     LAUNCHES["any"] += 1
     return occ
 

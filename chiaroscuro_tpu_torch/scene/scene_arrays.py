@@ -157,10 +157,14 @@ def build_scene_tensors(
     textures: Optional[Dict[str, np.ndarray]] = None,
     enable_specular: bool = False,
     point_lights: Sequence = (),
-    device="cpu",
+    device="cuda",
 ) -> SceneTensors:
     """Flatten meshes into SceneTensors (reference ``kdtree.cpp:34-108``);
     mirrors ``build_scene_arrays`` field by field.
+
+    The tensors go to ``device``: the card unless the caller names another
+    (``device="cpu"``), as ``build_scene_arrays`` places its arrays on the
+    accelerator.  Without a card, a call that does not name the CPU raises.
 
     ``textures`` maps texture path -> (H, W, 3) float32 array; when None,
     each mesh's texture paths are decoded from disk.

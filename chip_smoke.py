@@ -8,9 +8,10 @@ raises, exits non-zero and prints no result line.
 
 1. Device and build: the card's name and power limit (nvidia-smi), torch's
    device name and count.  The CUDA sources (``csrc/intersect_dense.cu``
-   K1/K2, ``csrc/intersect_cluster.cu`` K4-K7) build in parallel, one nvcc
-   each, while the Triton cull K3 (``ops/cull_triton.py``) compiles; build
-   seconds, registers, shared memory and spills are printed.
+   K1/K2, ``csrc/intersect_cluster.cu`` K4-K7, ``csrc/cull_rowhit.cu`` X1,
+   ``csrc/dma_min.cu`` X2) build in parallel, one nvcc each, while the
+   Triton cull K3 (``ops/cull_triton.py``) compiles; build seconds,
+   registers, shared memory and spills are printed.
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
    Cornell (T = 36) and a seeded random soup (T = 4,096), B0 = 4,608 rows
    (one 768x768 wavefront) with a third of the rows dead: bitwise equal.
@@ -21,14 +22,18 @@ raises, exits non-zero and prints no result line.
    as the integrator sorts it on this path.  K3 must equal its plain version
    exactly on every row (closest and shadow queries); K6/K7 must be bitwise
    equal to theirs on a seeded sample of rows plus every row that overflowed
-   its list.
+   its list.  X1 (the row-hit cull of the tool path) on every row of the
+   primary wavefront, without tmax and with tmax = each ray's closest hit:
+   exactly equal to its plain version and, sliced to K, to K3's hit mask;
+   timed beside K3's sweep and the whole K3 cull on the same rays.
 2c. Resident cluster kernels at Sponza scale (``synthetic:atrium:262144``,
    261,396 triangles, K = 2,043, resident by the JAX rule): the same four
    wavefronts of its 1280x720 frame.  K3 exact on every row; K4/K5 bitwise
    equal to the plain versions on a seeded row sample plus every overflow
    row, and bitwise equal to K6/K7 on every row; per-row visit counts.  The
    same checks (every row) on atrium(2_200, seed=5) at M = 32 with 32-wide
-   lists, most of whose rows overflow.
+   lists, most of whose rows overflow.  X1 as in 2b on every row of the NEE
+   shadow wavefront (with its tmax).
 3. Cornell render: the CLI's batch render of ``scenes/cornell.rtc`` at its
    768x768 and k 6, at RENDER_SPP samples, into an EXR in a temporary
    directory that is read back; finite, non-trivial, one K1 and one K2
@@ -54,7 +59,8 @@ raises, exits non-zero and prints no result line.
    compaction), each with a torch.profiler breakdown of one warm frame.
 4. Timings (CUDA events, with the card's name and power limit): every
    kernel vs its plain version in us per launch, K4/K5 beside K6/K7 on the
-   same lists with visits per launch, and each kernel's bound.
+   same lists with visits per launch, and each kernel's bound on the rows
+   it was timed on (K4-K7: the 256-row sample and every row).
 5. Gradients (``render_samples`` + ``backward``, the intersectors rebuilt on
    the parameter-substituted scene): (i) the card's value and gradients of
    the mean image w.r.t. kd, ke (and tri_v0 on Cornell, tex_data on the
@@ -66,10 +72,18 @@ raises, exits non-zero and prints no result line.
    through K1 (the JAX bench's 500 spp cut to 16).  ms and peak device
    memory are printed, and torch.profiler breakdowns of one 262k fwd+bwd and
    of a 2-spp Cornell 512x512 fwd+bwd.
+6. The tool path: ``tools/cull_experiments.main()`` (the cull shootout on
+   ``synthetic:atrium:19000`` at 1024x1024: K3, the dot-reduce and
+   scan-free formulations and X1, their masks and lists checked against
+   each other, and X1 against its plain version at KB = 256, padded
+   columns included) and ``tools/dma_min.main()``, with the tools' launch counts
+   set to 0 before and read after; X2 bitwise equal to its plain version
+   at trip 0, 5, 16 and 19, and timed beside it and ``big[:trip*M].sum(0)``.
 
 The line before the last is a JSON object of the kernels: for each, the
-launches of the main-path CLI runs (counts set to 0 before each run and read
-after it, summed over the runs), its largest |kernel - plain|, its time and
+launches of its path (K1-K7: the main-path CLI runs, counts set to 0 before
+each run and read after it, summed over the runs; X1/X2: phase 6), its
+largest |kernel - plain|, its time and
 its plain version's on the stated inputs, and the bound: the larger of the
 FP32 operations those inputs need (visits counted per row; occlusion lanes
 tested only up to their first blocker) over the card's unfused FP32 rate and the bytes read and written once over its memory rate.
@@ -98,6 +112,7 @@ ATRIUM_K = 3
 MID_TRIS = 262_144         # synthetic:atrium:262144, resident by the JAX rule
 NANO_TRIS = 19_000         # synthetic:atrium:19000, the nanosuit scale
 ROW_SAMPLE = 256           # seeded rows for the plain visit comparisons
+VISIT_ROWS = 512           # rows per step of the occlusion bound's replay
 SMALL_LMAX = 32            # lists short enough that most atrium(2_200) rows overflow
 PIXEL_ORDER_LMAX = 512     # list width for the pixel-order bounce block
 
@@ -113,10 +128,15 @@ MT_OPS = 54
 # axis 2 sub, 2 mul, min, max (18); near/far across axes 4; hit 3; tmax 1;
 # max(near, 0), select, min-reduce 3.
 CULL_OPS = 29
+# FP32 operations of one (lane, box) row-hit test of X1
+# (csrc/cull_rowhit.cu): per axis 2 sub, 2 mul, min, max (18); near/far
+# across axes 4; hit 3; the row's any 1.  With tmax, 2 more.
+X1_OPS = 26
 
 KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
               "closest_resident": "K4", "any_resident": "K5",
-              "closest_cluster": "K6", "any_cluster": "K7"}
+              "closest_cluster": "K6", "any_cluster": "K7", "cull_rowhit": "X1",
+              "dma_min": "X2"}
 
 
 def card_line() -> str:
@@ -330,7 +350,8 @@ def atrium_wavefronts(scene, xres, yres, dev):
     parked; and a block of ROW_SAMPLE rows of it in pixel order) and the NEE
     shadow wavefront from the same hits (sorted by light and cell as
     ``_sorted_any`` sorts it).  Returns {name: (o3, d3,
-    tmax or None, excl or None)} and the primary hit share."""
+    tmax or None, excl or None)}, the primary hit share and the primary
+    closest-hit distances (B0, 128) (BIG where a ray missed)."""
     from chiaroscuro_tpu_torch.geometry import planar as P
     from chiaroscuro_tpu_torch.geometry.camera import camera_basis, primary_ray_dirs_planar
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
@@ -405,7 +426,7 @@ def atrium_wavefronts(scene, xres, yres, dev):
         "shadow": (planar(ss[0:3]), planar(ss[3:6]), ss[6].reshape(B).contiguous(),
                    ss[7].view(torch.int32).reshape(B).contiguous()),
     }
-    return waves, float(hit.float().mean())
+    return waves, float(hit.float().mean()), res.t.contiguous()
 
 
 def take_rows(x, rows):
@@ -508,31 +529,34 @@ def open_lane_tests(cc, lists, o3, d3, tmax, excl, packed, visits, occ):
     ``occ``, the kernel's result, or the visit order is not the kernel's."""
     meta, ids = lists[0], lists[1]
     K, M = packed.shape[0], packed.shape[2]
+    Le = ids.shape[1]
     dev = o3.device
-    found = torch.zeros_like(occ)
-    tests = 0
-    for b in range(o3.shape[1]):
-        n = int(visits[b])
-        n1 = min(n, int(meta[b, 0]))
-        if n - n1 > K:
-            raise AssertionError(f"row {b}: {n} visits past the {K}-cluster sweep")
-        seq = torch.cat([ids[b, :n1].long(), torch.arange(n - n1, device=dev)])
-        o = tuple(o3[a, b][None] for a in range(3))
-        d = tuple(d3[a, b][None] for a in range(3))
-        done = torch.zeros(128, dtype=torch.bool, device=dev)
-        count = torch.zeros(128, dtype=torch.int64, device=dev)
-        for v0, e1, e2, oid in cc._tri_chunks(packed, seq):
-            ok, t, _, _ = cc._mt_core(o, d, v0, e1, e2)          # (C, 128)
-            blocking = ok & (t < tmax[b][None]) & (oid[:, None] != excl[b][None])
-            C = oid.numel()
-            first = torch.where(blocking, torch.arange(C, device=dev)[:, None], C).amin(0)
-            count += torch.where(done, 0, torch.clamp_max(first + 1, C))
-            done |= first < C
-        found[b] = done
-        tests += int(count.sum())
-    if not torch.equal(found, occ):
+    n = visits.long()
+    n1 = torch.minimum(n, meta[:, 0].long())
+    if bool((n - n1 > K).any()):
+        raise AssertionError(f"a row visits past the {K}-cluster sweep")
+    done = torch.zeros_like(occ)
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
+    tri = torch.arange(M, device=dev)[None, :, None]
+    # Visit j of every row that makes one, VISIT_ROWS rows at a time.
+    for j in range(int(n.max()) if n.numel() else 0):
+        for rows in torch.nonzero(n > j).reshape(-1).split(VISIT_ROWS):
+            listed = j < n1[rows]
+            cid = torch.where(listed, ids[rows, min(j, Le - 1)].long(), j - n1[rows])
+            blk = packed[cid]                                  # (R, 10, M)
+            cols = tuple(blk[:, c, :, None] for c in range(9))  # (R, M, 1)
+            oid = blk[:, 9].contiguous().view(torch.int32)[:, :, None]
+            o = tuple(o3[a, rows][:, None] for a in range(3))   # (R, 1, 128)
+            d = tuple(d3[a, rows][:, None] for a in range(3))
+            ok, t, _, _ = cc._mt_core(o, d, cols[0:3], cols[3:6], cols[6:9])
+            blocking = ok & (t < tmax[rows][:, None]) & (oid != excl[rows][:, None])
+            first = torch.where(blocking, tri, M).amin(1)     # (R, 128)
+            was = done[rows]
+            tests += torch.where(was, 0, torch.clamp_max(first + 1, M)).sum()
+            done[rows] = was | (first < M)
+    if not torch.equal(done, occ):
         raise AssertionError("the occlusion bound's visit order does not reproduce the kernel")
-    return tests
+    return int(tests)
 
 
 def visit_bound(lists, o3, tmax, packed, visits, tests, hit_tris):
@@ -598,28 +622,74 @@ def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
             vs = torch.zeros(so3.shape[1], dtype=torch.int32, device=dev)
             va = torch.zeros(nB0, dtype=torch.int32, device=dev)
             out = run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs, visits=vs)
-            run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=va)
-            visits[k] = (vs, va, out)
+            out_all = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=va)
+            visits[k] = (vs, va, out, out_all)
         least = cc.ROUTES["stream"][0 if closest else 1]
         least = least if least in visits else kernels[0]
-        l_vs, _, l_out = visits[least]
-        if closest:
-            tests = 128 * packed.shape[2] * int(l_vs.sum())
-            hit_tris = int(torch.unique(l_out[1][l_out[0] < cc.BIG]).numel())
-        else:
-            tests = open_lane_tests(cc, sub, so3, sd3, stm, sex, packed, l_vs, l_out)
-            hit_tris = 0
-        b = visit_bound(sub, so3, stm, packed, l_vs, tests, hit_tris)
+        l_vs, l_va, l_out, l_out_all = visits[least]
+        bounds = {}
+        for rows, (ls, ro3, rd3, rtm, rex, rv, rout) in {
+                "sample": (sub, so3, sd3, stm, sex, l_vs, l_out),
+                "all": (lists, o3, d3, tmax, excl, l_va, l_out_all)}.items():
+            if closest:
+                tests = 128 * packed.shape[2] * int(rv.sum())
+                hit_tris = int(torch.unique(rout[1][rout[0] < cc.BIG]).numel())
+            else:
+                tests = open_lane_tests(cc, ls, ro3, rd3, rtm, rex, packed, rv, rout)
+                hit_tris = 0
+            bounds[rows] = (visit_bound(ls, ro3, rtm, packed, rv, tests, hit_tris), tests)
         for k in kernels:
-            vs, va, _ = visits[k]
+            vs, va, _, _ = visits[k]
             timings[(k, wname)] = dict(
                 us=sample_t[k][0], turns=sample_t[k][1], plain_us=sample_t["plain"][0],
                 plain_turns=sample_t["plain"][1], full_us=full_t[k][0], full_turns=full_t[k][1],
-                visits_sample=int(vs.sum()), visits_all=int(va.sum()), bound=b,
-                tests_sample=tests, rows=nB0)
+                visits_sample=int(vs.sum()), visits_all=int(va.sum()),
+                bound=bounds["sample"][0], tests_sample=bounds["sample"][1],
+                bound_all=bounds["all"][0], tests_all=bounds["all"][1], rows=nB0)
         timings[("rows", wname)] = (nB0, wle, float(lists[0][:, 0].float().median()),
                                     float(sub[0][:, 0].float().median()))
     return timings
+
+
+def compare_x1(xc, cc, cull_triton, what, o3, d3, tmax, bmin, bmax, boxes):
+    """X1 on every row of a wavefront: exactly equal to its plain version
+    (padded columns 1.0 in every row), and ``rowhit[:, :K] > 0`` exactly
+    K3's hit mask; then timed in turns beside K3's Triton sweep and the
+    whole K3 cull on the same rays.  Returns the timings and the bound."""
+    K, KB, nB0 = bmin.shape[0], boxes.shape[0], o3.shape[1]
+    inv = cc._safe_inv(d3)
+    got = xc.cull_rowhit(o3, d3, boxes, tmax)
+    want = xc.cull_rowhit_plain(o3, d3, boxes, tmax)
+    k3_hit, _ = cull_triton.rowhit(o3, inv, bmin, bmax, tmax)
+    sync()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: X1 differs from its plain version")
+    if not torch.equal(got[:, :K] > 0.0, k3_hit):
+        raise AssertionError(f"{what}: X1's row hits differ from K3's hit mask")
+    if not bool((got[:, K:] == 1.0).all()):
+        raise AssertionError(f"{what}: a padded column of X1 is not 1.0")
+    Le = min(cc.DEFAULT_LMAX, K)
+    t = time_turns({
+        "plain": lambda: xc.cull_rowhit_plain(o3, d3, boxes, tmax),
+        "x1": lambda: xc.cull_rowhit(o3, d3, boxes, tmax),
+        "k3 sweep": lambda: cull_triton.rowhit(o3, inv, bmin, bmax, tmax),
+        "k3 cull": lambda: cc.cull(o3, d3, bmin, bmax, Le, tmax=tmax),
+    }, {"plain": 1, "x1": 10, "k3 sweep": 10, "k3 cull": 10})
+    ops = (X1_OPS + (2 if tmax is not None else 0)) * nB0 * 128 * K
+    nbytes = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + KB * 32 + nB0 * KB * 4
+    b = bound(ops, nbytes)
+    print(f"[x1] {what}: B0={nB0} K={K} KB={KB} row-hit share "
+          f"{float(got[:, :K].mean()):.4f}; X1 equals its plain version and K3's hit mask "
+          f"exactly on every row")
+    return dict(t=t, bound=b, rows=nB0, K=K, err=max_err(got, want))
+
+
+def print_x1_timings(card, what, x):
+    t, (b_ms, b_by) = x["t"], x["bound"]
+    parts = ", ".join(f"{n} {m:.1f} us (turns {a:.1f}, {c:.1f})" for n, (m, (a, c)) in t.items())
+    print(f"[timing] {card}: X1 cull_rowhit {what} B0={x['rows']} K={x['K']}: {parts}; "
+          f"X1 bound {b_ms * 1e3:.1f} us ({b_by}); X1 / K3 sweep "
+          f"{t['x1'][0] / t['k3 sweep'][0]:.3f}, X1 / K3 cull {t['x1'][0] / t['k3 cull'][0]:.3f}")
 
 
 def print_cluster_timings(card, scene_name, ctimings):
@@ -636,6 +706,7 @@ def print_cluster_timings(card, scene_name, ctimings):
                   f"plain {val['plain_us']:.1f} us (turns {val['plain_turns'][0]:.1f}, "
                   f"{val['plain_turns'][1]:.1f}); bound {b_ms * 1e3:.1f} us ({b_by})")
         else:
+            a_ms, a_by = val["bound_all"]
             print(f"[timing] {card}: {kid} {kern} {scene_name} {wname}, sample of {ROW_SAMPLE} "
                   f"rows: kernel {val['us']:.1f} us (turns {val['turns'][0]:.1f}, "
                   f"{val['turns'][1]:.1f}), plain {val['plain_us']:.1f} us (turns "
@@ -644,7 +715,8 @@ def print_cluster_timings(card, scene_name, ctimings):
                   f"{val['tests_sample']} lane-triangle tests needed); all "
                   f"{val['rows']} rows: {val['full_us']:.1f} us (turns {val['full_turns'][0]:.1f}, "
                   f"{val['full_turns'][1]:.1f}), {val['visits_all']} visits "
-                  f"({val['visits_all'] / val['rows']:.1f} per row)")
+                  f"({val['visits_all'] / val['rows']:.1f} per row), bound {a_ms * 1e3:.1f} us "
+                  f"({a_by}, {val['tests_all']} lane-triangle tests needed)")
 
 
 def cli_render(cli, repo, counts, tokens, out_name):
@@ -851,6 +923,8 @@ def main() -> int:
     from chiaroscuro_tpu_torch.scene.config import RenderConfig
     from chiaroscuro_tpu_torch.scene.scene_arrays import build_scene_tensors, load_scene
     from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA, atrium
+    from chiaroscuro_tpu_torch.tools import cull_experiments as xc
+    from chiaroscuro_tpu_torch.tools import dma_min as dm
 
     t_start = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -869,8 +943,8 @@ def main() -> int:
     print(f"[device] nvidia-smi: {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(ic.build), pool.submit(cc.build)]
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(b) for b in (ic.build, cc.build, xc.build, dm.build)]
         # Meanwhile compile both Triton variants with one tiny launch each.
         t_tri = time.perf_counter()
         # (B0 and K multiples of 16, as at the atrium: Triton specializes on it.)
@@ -929,7 +1003,7 @@ def main() -> int:
     if (big.n_tris, ca.K) != (481_208, 3_760) or not cc.streams_by_budget(ca.K, ca.M):
         raise AssertionError("the full atrium is no longer the 481,208-triangle streaming scene")
     with torch.no_grad():
-        waves, primary_hits = atrium_wavefronts(big, *ATRIUM_RES, dev)
+        waves, primary_hits, primary_t = atrium_wavefronts(big, *ATRIUM_RES, dev)
         if waves["primary"][0].shape[1] != 7200 or primary_hits < 0.99:
             raise AssertionError(f"atrium primary wavefront: B0 or hit share {primary_hits} off")
         big_errs, big_inputs, n_over = compare_cluster(
@@ -937,11 +1011,20 @@ def main() -> int:
             routes=("stream",))
         ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng,
                                 routes=("stream",))
+        boxes = torch.from_numpy(xc.pack_cull_boxes(ca.bbox_min, ca.bbox_max)).to(dev)
+        x1_times = {
+            "481k primary": compare_x1(xc, cc, cull_triton, "atrium 481k primary",
+                                       *waves["primary"][:3], bmin, bmax, boxes),
+            "481k primary, tmax = hit t": compare_x1(
+                xc, cc, cull_triton, "atrium 481k primary, tmax = the closest hit's t",
+                *waves["primary"][:2], primary_t, bmin, bmax, boxes),
+        }
     if n_over == 0:
         raise AssertionError("no overflow row was compared: phase 2 of K6/K7 went unchecked")
-    del big, packed, attrs, waves, big_inputs
+    del big, packed, attrs, waves, big_inputs, boxes, primary_t
     torch.cuda.empty_cache()
-    print("[cluster] K3 exact, K6/K7 bitwise against their plain versions")
+    print("[cluster] K3 exact, K6/K7 bitwise against their plain versions; X1 exact against "
+          "its plain version and K3's hit mask")
 
     # --- phase 2c: resident cluster kernels (262k) -----------------------------
     t0 = time.perf_counter()
@@ -963,7 +1046,7 @@ def main() -> int:
     if (mid.n_tris, mca.K) != (261_396, 2_043) or cc.streams_by_budget(mca.K, mca.M):
         raise AssertionError("atrium:262144 is no longer the 261,396-triangle resident scene")
     with torch.no_grad():
-        m_waves, primary_hits = atrium_wavefronts(mid, *ATRIUM_RES, dev)
+        m_waves, primary_hits, _ = atrium_wavefronts(mid, *ATRIUM_RES, dev)
         if primary_hits < 0.99:
             raise AssertionError(f"atrium:{MID_TRIS} primary hit share {primary_hits} off")
         mid_errs, mid_inputs, n_over = compare_cluster(
@@ -973,13 +1056,16 @@ def main() -> int:
         small = build_scene_tensors(atrium(2_200, seed=5), device=dev)
         sca = build_clusters(*(x.cpu().numpy() for x in (small.tri_v0, small.tri_v1, small.tri_v2)), 32)
         s_packed, s_attrs2 = cc.derive_buffers(small, sca)
-        s_waves, _ = atrium_wavefronts(small, 160, 96, dev)
+        s_waves, _, _ = atrium_wavefronts(small, 160, 96, dev)
         small_errs, _, s_over = compare_cluster(
             cc, "atrium(2_200) M=32", s_waves, torch.from_numpy(sca.bbox_min).to(dev),
             torch.from_numpy(sca.bbox_max).to(dev), SMALL_LMAX, s_packed, s_attrs2, rng,
             all_rows=True, routes=("resident", "stream"))
         mtimings = time_cluster(cc, mid_inputs, m_bmin, m_bmax, m_packed, m_attrs, rng,
                                 routes=("resident", "stream"))
+        x1_times["262k shadow"] = compare_x1(
+            xc, cc, cull_triton, f"atrium:{MID_TRIS} shadow", *m_waves["shadow"][:3], m_bmin,
+            m_bmax, torch.from_numpy(xc.pack_cull_boxes(mca.bbox_min, mca.bbox_max)).to(dev))
     if n_over == 0 or s_over == 0:
         raise AssertionError("no overflow row was compared: phase 2 of K4/K5 went unchecked")
     cluster_errs = {k: max(big_errs.get(k, 0.0), mid_errs.get(k, 0.0), small_errs.get(k, 0.0))
@@ -1128,6 +1214,8 @@ def main() -> int:
         print(f"[timing] {card}: {kid} bound on the cornell queries {b_ms * 1e3:.1f} us ({b_by})")
     print_cluster_timings(card, "atrium 481k", ctimings)
     print_cluster_timings(card, f"atrium:{MID_TRIS}", mtimings)
+    for what, x in x1_times.items():
+        print_x1_timings(card, what, x)
     ms_per_sample = st["seconds"] * 1e3 / cfg.samples
     print(f"[timing] {card}: cornell render 768x768 k6 {cfg.samples} spp: "
           f"{st['seconds']:.3f} s, {ms_per_sample:.2f} ms/sample, "
@@ -1213,12 +1301,52 @@ def main() -> int:
                              lambda s: make_intersectors(s, "dense"), checkpoint=True),
             "cornell 512x512 x 2 spp x k3 fwd+bwd, checkpoint=True", card)
 
-    def entry(name, route, source, replaces, e, ms, plain_ms, bnd):
+    # --- phase 6: the tool path (X1 in the cull shootout, X2) -------------------
+    t0 = time.perf_counter()
+    reset(xc.LAUNCHES, dm.LAUNCHES)
+    shootout = xc.main()
+    x2_out, x2_x = dm.main()
+    tool_launches = {**xc.LAUNCHES, **dm.LAUNCHES}
+    t_tools = time.perf_counter() - t0
+    if shootout["K"] != 148 or shootout["B0"] != 8192:
+        raise AssertionError(f"the shootout ran K={shootout['K']}, B0={shootout['B0']}, "
+                             "not atrium:19000 at 1024x1024")
+    x2_err = 0.0
+    for trip in (0, 5, dm.K, dm.K + 3):
+        meta = torch.tensor([[trip, 0]], dtype=torch.int32, device=dev)
+        got, want = dm.dma_min(meta, x2_x), dm.dma_min_plain(meta, x2_x)
+        sync()
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"X2 differs from its plain version at trip {trip}")
+        x2_err = max(x2_err, max_err(got, want))
+        print(f"[x2] trip {trip}: X2 bitwise equal to its plain version; column sums "
+              f"{float(got.min()):.3f}..{float(got.max()):.3f}")
+    if not torch.equal(bits(x2_out), bits(dm.dma_min_plain(
+            torch.tensor([[dm.K, 0]], dtype=torch.int32, device=dev), x2_x))):
+        raise AssertionError("the repro's X2 output differs from its plain version")
+    full = torch.tensor([[dm.K, 0]], dtype=torch.int32, device=dev)
+    x2_t = time_turns({
+        "plain": lambda: dm.dma_min_plain(full, x2_x),
+        "x2": lambda: dm.dma_min(full, x2_x),
+        "library": lambda: x2_x[:dm.K * dm.M].sum(0),
+    }, {"plain": 10, "x2": 100, "library": 100})
+    # X2 reads trip's K distinct blocks once and adds trip x M x W values.
+    x2_bound = bound(dm.K * dm.M * dm.W, 8 + dm.K * dm.M * dm.W * 4 + dm.W * 4)
+    print(f"[tools] launches {tool_launches} in {t_tools:.1f} s")
+    print(f"[timing] {card}: X2 dma_min trip {dm.K}: "
+          + ", ".join(f"{n} {m:.2f} us (turns {a:.2f}, {c:.2f})" for n, (m, (a, c)) in x2_t.items())
+          + f"; bound {x2_bound[0] * 1e3:.3f} us ({x2_bound[1]})")
+    # Launches above for comparison and timing do not count: the counts
+    # are the tool phase's.
+
+    def entry(name, route, source, replaces, e, ms, plain_ms, bnd, launches=None,
+              library_ms=None):
+        if launches is None:
+            launches = main_launches[name if name not in ("closest_dense", "any_dense")
+                                     else name.split("_")[0]]
         return {"name": name, "route": route, "source": source, "replaces": replaces,
-                "launches": main_launches[name if name not in ("closest_dense", "any_dense")
-                                          else name.split("_")[0]],
-                "max_abs_err": e, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None}
+                "launches": launches, "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
 
     def visit_entry(name, replaces, t):
         return entry(name, "cuda", "chiaroscuro_tpu_torch/csrc/intersect_cluster.cu",
@@ -1227,6 +1355,7 @@ def main() -> int:
     ct = timings[("closest", "cornell")]
     at = timings[("any", "cornell")]
     cull_t = ctimings[("cull", "primary")]
+    x1_t = x1_times["481k primary"]
     kernels = [
         entry("closest_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
               "chiaroscuro_tpu/ops/intersect_pallas.py:206", err, ct[0] / 1e3, ct[1] / 1e3,
@@ -1245,11 +1374,21 @@ def main() -> int:
                     ctimings[("closest_cluster", "primary")]),
         visit_entry("any_cluster", "chiaroscuro_tpu/ops/cluster_pallas.py:750",
                     ctimings[("any_cluster", "shadow")]),
+        entry("cull_rowhit", "cuda", "chiaroscuro_tpu_torch/csrc/cull_rowhit.cu",
+              "tools/tpu_cull_experiments.py:52", max(x["err"] for x in x1_times.values()),
+              x1_t["t"]["x1"][0] / 1e3,
+              x1_t["t"]["plain"][0] / 1e3, x1_t["bound"],
+              launches=tool_launches["cull_rowhit"]),
+        entry("dma_min", "cuda", "chiaroscuro_tpu_torch/csrc/dma_min.cu",
+              "tools/_tpu_dma_min.py:9", x2_err, x2_t["x2"][0] / 1e3, x2_t["plain"][0] / 1e3,
+              x2_bound, launches=tool_launches["dma_min"],
+              library_ms=x2_t["library"][0] / 1e3),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
-        raise AssertionError(f"kernels never launched on the main paths: {missing}")
-    print(f"[smoke] main-path launches {main_launches}; {time.perf_counter() - t_start:.1f} s")
+        raise AssertionError(f"kernels never launched on their paths: {missing}")
+    print(f"[smoke] main-path launches {main_launches}; tool-path launches {tool_launches}; "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

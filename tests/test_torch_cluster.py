@@ -81,7 +81,7 @@ def _soup_scene(rng, T, spread=4.0, size=0.6):
         emissive=np.zeros(3, np.float32), ambient=np.zeros(3, np.float32),
         specular=np.zeros(3, np.float32), shininess=0.0,
     )
-    return build_scene_tensors([mesh])
+    return build_scene_tensors([mesh], device="cpu")
 
 
 def _rows(rng, n, lo, hi, pad=0.1):
@@ -257,7 +257,7 @@ def test_cluster_any_matches_oracle(rng):
 
 
 def test_cluster_attrs_match_scene_gathers(rng):
-    scene = build_scene_tensors(cornell_box())
+    scene = build_scene_tensors(cornell_box(), device="cpu")
     cf, _ = cc.make_cluster_intersectors(scene, M=8, Lmax=16)
     o, d = _rows(rng, 200, scene.world_min.numpy(), scene.world_max.numpy())
     res = cf(o, d)
@@ -275,7 +275,7 @@ def test_atrium_streaming_matches_oracle(rng, lmax):
     """tests/test_synthetic.py: the shipped streaming configuration against
     the brute oracle, with a textured hit whose atlas fetch differs from the
     flat kd."""
-    scene = build_scene_tensors(atrium(2_200, seed=5))
+    scene = build_scene_tensors(atrium(2_200, seed=5), device="cpu")
     cf, af = cc.make_cluster_intersectors(scene, M=M, stream=True, Lmax=lmax)
     lo, hi = scene.world_min.numpy(), scene.world_max.numpy()
     o = torch.from_numpy(rng.uniform(lo, hi, (128, 3)).astype(np.float32))

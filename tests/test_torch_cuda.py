@@ -1,7 +1,8 @@
 """The CUDA and Triton kernels against their plain torch versions, on a
 card: K1/K2 (dense), K3 (the cluster cull), K4/K5 (the resident cluster
-visits) and K6/K7 (the streaming ones); K4/K5 also against K6/K7, and the
-card's gradients against the CPU's.
+visits) and K6/K7 (the streaming ones), X1 (the row-hit cull) and X2 (the
+double-buffered block fetch); K4/K5 also against K6/K7, and the card's
+gradients against the CPU's.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -25,6 +26,8 @@ from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
 from chiaroscuro_tpu_torch.scene.builtin import cornell_box
 from chiaroscuro_tpu_torch.scene.scene_arrays import build_scene_tensors
 from chiaroscuro_tpu_torch.scene.synthetic import atrium
+from chiaroscuro_tpu_torch.tools import cull_experiments as xc
+from chiaroscuro_tpu_torch.tools import dma_min as dm
 
 B0 = 37   # rows of 128 rays; row 1 and every third row after it dead
 
@@ -201,6 +204,61 @@ def test_resident_kernels_equal_streaming_and_plain(lmax, cuda_device):
     for got, ref, meta in ((v4, v6, lists[0]), (v5, v7, slists[0])):
         assert bool((got >= ref).all()) and bool((ref >= 0).all())
         assert bool((got <= meta[:, 0] + K).all()) and int(ref.sum()) > 0
+
+
+def _x1_inputs(dev):
+    """Seeded rays and 300 boxes (KB = 384) in the unit cube; row 3's rays
+    start outside and point away, so only its padded columns hit."""
+    rng = np.random.default_rng(12)
+    lo = rng.uniform(0.0, 0.9, (300, 3))
+    boxes = xc.pack_cull_boxes(lo.astype(np.float32),
+                               (lo + rng.uniform(0.01, 0.1, (300, 3))).astype(np.float32))
+    o3 = rng.uniform(-0.2, 1.2, (3, B0, 128))
+    d3 = rng.normal(size=(3, B0, 128))
+    d3[:, 5, :7] = 0.0                      # axis-parallel lanes: the clamped 1/d
+    o3[:, 3], d3[:, 3] = 5.0, np.abs(d3[:, 3]) + 0.1
+    tmax = rng.uniform(0.0, 1.5, (B0, 128))
+    return {k: torch.tensor(x, dtype=torch.float32, device=dev)
+            for k, x in dict(o3=o3, d3=d3, tmax=tmax, boxes=boxes).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tmax", [False, True])
+def test_x1_equals_plain_on_card(with_tmax, cuda_device):
+    """X1 exactly equal to its plain version, padded columns 1.0 in every
+    row, a row that hits only padded columns, and its row hits equal to
+    K3's hit mask."""
+    t = _x1_inputs(cuda_device)
+    tmax = t["tmax"] if with_tmax else None
+    before = xc.LAUNCHES["cull_rowhit"]
+    got = xc.cull_rowhit(t["o3"], t["d3"], t["boxes"], tmax)
+    torch.cuda.synchronize()
+    assert xc.LAUNCHES["cull_rowhit"] == before + 1
+    assert torch.equal(got, xc.cull_rowhit_plain(t["o3"], t["d3"], t["boxes"], tmax))
+    assert bool((got[:, 300:] == 1.0).all()) and not bool(got[3, :300].any())
+    assert 0.05 < float(got[:, :300].mean()) < 0.95
+    bmin, bmax = t["boxes"][:300, 0:3].contiguous(), t["boxes"][:300, 3:6].contiguous()
+    assert torch.equal(got[:, :300] > 0, xc.k3_rowhit(t["o3"], t["d3"], bmin, bmax, tmax))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trip", [0, 1, 5, 16, 19, 40])
+def test_x2_equals_plain_on_card(trip, cuda_device):
+    """X2 bitwise equal to its plain version, trip = 0 (zeros) and trip > K
+    (the last block again) included."""
+    x = torch.tensor(np.random.default_rng(trip).random((dm.K * dm.M, dm.W)),
+                     dtype=torch.float32, device=cuda_device)
+    meta = torch.tensor([[trip, 0]], dtype=torch.int32, device=cuda_device)
+    before = dm.LAUNCHES["dma_min"]
+    got = dm.dma_min(meta, x)
+    torch.cuda.synchronize()
+    assert dm.LAUNCHES["dma_min"] == before + 1
+    want = dm.dma_min_plain(meta, x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if trip == 0:
+        assert not bool(got.any())
+    ref = x.double().reshape(dm.K, dm.M, dm.W)[[min(j, dm.K - 1) for j in range(trip)]].sum((0, 1))
+    torch.testing.assert_close(got[0].double(), ref, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.cuda

@@ -79,7 +79,7 @@ def _rays(scene, rng, n):
 def test_brute_oracle_matches_jax():
     """hit equal; tid equal or a tie within rtol 1e-6 (tests/test_pallas.py
     :48-50); t within rtol 1e-6; occlusion equal."""
-    scene = build_scene_tensors(cornell_box())
+    scene = build_scene_tensors(cornell_box(), device="cpu")
     rng = np.random.default_rng(11)
     o, d = _rays(scene, rng, 1000)
     tris = [getattr(scene, k) for k in ("tri_v0", "tri_v1", "tri_v2")]

@@ -86,7 +86,7 @@ def _grad(loss, params):
 
 @pytest.fixture(scope="module")
 def setup():
-    scene = build_scene_tensors(cornell_box())
+    scene = build_scene_tensors(cornell_box(), device="cpu")
     cam = CORNELL_CAMERA
     cfg = RenderConfig(
         xres=12, yres=12, k=2, samples=8, seed=0, intersector="dense",
@@ -197,7 +197,7 @@ def _textured_quad():
         specular=np.zeros(3, np.float32), shininess=0.0,
     )
     tex = np.linspace(0.1, 0.9, 4 * 4 * 3).reshape(4, 4, 3).astype(np.float32)
-    scene = build_scene_tensors([mesh, light], textures={"mem://checker": tex})
+    scene = build_scene_tensors([mesh, light], textures={"mem://checker": tex}, device="cpu")
     cfg = RenderConfig(
         xres=8, yres=8, k=1, samples=4, seed=0, intersector="dense",
         vp=(0, 0, 3), la=(0, 0, 0), up=(0, 1, 0), yview=0.8, platform="cpu",
@@ -428,7 +428,7 @@ def test_cluster_gradients_match_bruteforce(stream):
     gradients through the cluster pair (the plain K4, or K6 with
     ``stream=True``, inside the closest-hit Function) against the brute
     oracle's, under that test's bound."""
-    scene = build_scene_tensors(cornell_box())
+    scene = build_scene_tensors(cornell_box(), device="cpu")
     ca = cc.build_clusters(*(x.numpy() for x in (scene.tri_v0, scene.tri_v1, scene.tri_v2)), 8)
     px, py = _pixels(16, 16)
     w = torch.linspace(0.5, 1.5, 16 * 16 * 3).reshape(-1, 3)

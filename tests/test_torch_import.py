@@ -1,6 +1,7 @@
-"""The port imports torch and numpy only: never jax, never chiaroscuro_tpu.
-Every module is imported, and the resident visits and the gradient entry
-points by name.
+"""The port imports torch and numpy only: never jax, never chiaroscuro_tpu,
+never the repo's ``tools/``.  Every module is imported (the port's own
+``tools`` subpackage among them), and the resident visits, the gradient
+entry points and the X1/X2 wrappers by name.
 
 Both checks run in a fresh interpreter, since this test process has
 already imported jax (conftest.py).
@@ -26,9 +27,12 @@ from chiaroscuro_tpu_torch.ops.cluster_cuda import (
     any_resident, closest_cluster_diff, closest_resident)
 from chiaroscuro_tpu_torch.ops.intersect_cuda import closest_hit
 from chiaroscuro_tpu_torch.scene.scene_arrays import params_from_numpy
+from chiaroscuro_tpu_torch.tools.cull_experiments import cull_rowhit, cull_rows_kernelized
+from chiaroscuro_tpu_torch.tools.dma_min import dma_min
+assert "chiaroscuro_tpu_torch.tools.cull_experiments" in names
+assert "chiaroscuro_tpu_torch.tools.dma_min" in names
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "chiaroscuro_tpu"
-             or m.startswith("chiaroscuro_tpu."))
+             if m.split(".")[0] in ("jax", "chiaroscuro_tpu", "tools"))
 print(len(names), bad)
 """
 

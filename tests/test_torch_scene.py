@@ -86,14 +86,15 @@ def _both(name, tmp_path):
         pls = [((0.0, 1.5, 0.0), (255.0, 128.0, 0.0), 2.0)]
         return (
             build_scene_tensors(
-                load_obj(path), point_lights=[LightPoint(*p) for p in pls]
+                load_obj(path), point_lights=[LightPoint(*p) for p in pls],
+                device="cpu",
             ),
             build_scene_arrays(
                 jax_load_obj(path), point_lights=[JaxLightPoint(*p) for p in pls]
             ),
         )
     return (
-        build_scene_tensors(getattr(builtin, name)()),
+        build_scene_tensors(getattr(builtin, name)(), device="cpu"),
         build_scene_arrays(getattr(jax_builtin, name)()),
     )
 
@@ -114,7 +115,7 @@ def test_scene_tensors_equal_scene_arrays(name, tmp_path):
 
 
 def test_scene_tensors_from_numpy_round_trips():
-    st = build_scene_tensors(builtin.cornell_box())
+    st = build_scene_tensors(builtin.cornell_box(), device="cpu")
     fields = {k: getattr(st, k).numpy() for k in DATA_FIELDS}
     meta = {k: getattr(st, k) for k in META_FIELDS}
     back = scene_tensors_from_numpy(fields, meta, "cpu")

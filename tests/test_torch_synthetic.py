@@ -48,7 +48,7 @@ def test_atrium_deterministic_and_on_budget():
     for target in (6_000, 40_000):
         got = synthetic.atrium_tri_count(synthetic.atrium(target))
         assert abs(got - target) / target < 0.2, (target, got)
-    scene = build_scene_tensors(a)
+    scene = build_scene_tensors(a, device="cpu")
     assert scene.n_lights == 24
     assert scene.n_tris == synthetic.atrium_tri_count(a)
 
@@ -70,7 +70,7 @@ def test_proc_texture_bad_paths_raise():
 
 def test_atrium_scene_fields_equal_jax():
     """Every scene field, the proc: atlas included, equals JAX's exactly."""
-    st = build_scene_tensors(synthetic.atrium(2_200, seed=5))
+    st = build_scene_tensors(synthetic.atrium(2_200, seed=5), device="cpu")
     sa = build_scene_arrays(jax_synthetic.atrium(2_200, seed=5), device_put=False)
     for k in DATA_FIELDS:
         got, ref = getattr(st, k).numpy(), np.asarray(getattr(sa, k))
