@@ -11,8 +11,8 @@ numpy, never jax or ``chiaroscuro_tpu``:
   sampling/  counter-based Threefry streams + importance samplers
   geometry/  planar vec3 math, camera rays, brute-force Moller-Trumbore oracle
   accel/     intersector dispatch, meshlet clustering
-  ops/       the intersection kernels: the dense sweep and the cluster visits
-             in CUDA (csrc/), the cluster cull in Triton
+  ops/       the intersection kernels in CUDA (csrc/): the dense sweep, the
+             cluster cull and the cluster visits
   render/    wavefront integrator, renderer, tone map, image I/O
 
 The batch render: ``python -m chiaroscuro_tpu_torch scene.rtc no-preview``.

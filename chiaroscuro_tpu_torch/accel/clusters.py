@@ -2,7 +2,7 @@
 
 A copy of ``chiaroscuro_tpu/accel/clusters.py`` (plain numpy); its output
 equals the JAX package's exactly (tests/test_torch_cluster.py).  On the
-H100 the cull is K3 (``ops/cull_triton.py``) and the visits K6/K7
+H100 the cull is K3 (``csrc/cull_rows.cu``) and the visits K4-K7
 (``csrc/intersect_cluster.cu``); the notes below are the JAX package's.
 
 The reference accelerates ray casts with a per-ray recursive kd-tree walk

@@ -6,7 +6,7 @@ intersected; this module picks the backend:
 - ``"dense"``   — the dense kernels K1/K2 (``ops/intersect_cuda.py``):
   CUDA on a GPU, their plain torch versions on the CPU;
 - ``"cluster"`` — the cluster cull K3, then the resident visits K4/K5 or
-  the streaming visits K6/K7 (``ops/cluster_cuda.py``): Triton and CUDA on
+  the streaming visits K6/K7 (``ops/cluster_cuda.py``): CUDA on
   a GPU, their plain torch versions on the CPU.  The route follows the JAX
   package's rule: resident while the packed cluster matrix is within 72 MiB
   (every scene from 4,097 triangles to about 384k at M = 128), streaming

@@ -4,7 +4,7 @@
 // chiaroscuro_tpu/ops/cluster_pallas.py::_stream_closest_kernel and K7
 // any_cluster replaces ::_stream_any_kernel; K4 closest_resident replaces
 // ::_closest_kernel and K5 any_resident replaces ::_any_kernel.  All four
-// consume the per-row lists the cull K3 writes (ops/cull_triton.py): meta
+// consume the per-row lists the cull K3 writes (csrc/cull_rows.cu): meta
 // (B0, 2) [trip, overflow], ids (B0, Le) near-ascending cluster ids, nears
 // (B0, Le) entry lower bounds, cutoff (B0,) the entry of the first box left
 // off the list (+inf unless the row overflowed).

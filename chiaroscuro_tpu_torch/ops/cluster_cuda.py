@@ -5,11 +5,12 @@ versions, and the differentiable intersector pair the integrator calls.
 The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
 
 - ``cull`` is K3 (``_cull_rows`` :310): per 128-ray row, the exact per-lane
-  slab test against every cluster box (:func:`_rowhit_scan`; on a card the
-  Triton kernel of ``ops/cull_triton.py``), then the stable near-ordered
-  lists of :func:`_order_hits` (torch ops, as ``lax.sort`` on the TPU):
-  meta (B0, 2) int32 [trip, overflow], ids (B0, Le) int32, nears (B0, Le)
-  f32, cutoff (B0, 1) f32, Le = min(Lmax, K).
+  slab test against every cluster box, reduced to each row's hit count and
+  per-box sort keys (:func:`cull_sweep`: on a card ``csrc/cull_rows.cu``;
+  plain :func:`_rowhit_scan`), then the stable near-ordered lists of
+  :func:`_order_hits` (torch ops, as ``lax.sort`` on the TPU): meta (B0, 2)
+  int32 [trip, overflow], ids (B0, Le) int32, nears (B0, Le) f32, cutoff
+  (B0, 1) f32, Le = min(Lmax, K).
 - ``closest_resident`` is K4 (``_closest_kernel`` :485) and ``any_resident``
   K5 (``_any_kernel`` :550); ``closest_cluster`` is K6
   (``_stream_closest_kernel`` :627) and ``any_cluster`` K7
@@ -123,8 +124,10 @@ def _safe_inv(d3):
 def _rowhit_scan(o3, inv, bmin, bmax, tmax=None):
     """Plain K3 sweep (``cluster_pallas.py:120``): ``(hit (B0, K) bool,
     entry (B0, K) f32)`` — does any lane of row b hit box k, and the min
-    over hitting lanes of max(near, 0) (BIG where none).  Chunked over K so
-    nothing of size (K, B0, 128) is materialized."""
+    over hitting lanes of max(near, 0) (BIG where none).  A zero entry is
+    +0.0 (``+ 0.0`` turns the -0.0 of an origin on a box plane into +0.0,
+    as the kernel does: the card's radix sort orders -0.0 before +0.0).
+    Chunked over K so nothing of size (K, B0, 128) is materialized."""
     K = bmin.shape[0]
     R = o3.shape[1] * LANE
     chunk = max(1, min(K, _PLAIN_PAIRS // max(R, 1)))
@@ -145,28 +148,27 @@ def _rowhit_scan(o3, inv, bmin, bmax, tmax=None):
             hit = hit & (near <= tmax[None])
         hits.append(hit.any(dim=2))
         entries.append(
-            torch.where(hit, torch.clamp_min(near, 0.0), BIG).amin(dim=2)
+            torch.where(hit, torch.clamp_min(near, 0.0) + 0.0, BIG).amin(dim=2)
         )
     return torch.cat(hits).T.contiguous(), torch.cat(entries).T.contiguous()
 
 
-def _order_hits(hits, entry, Le):
-    """(B0, K) hit mask + entry distances -> near-ascending (meta, ids,
-    nears, cutoff) lists of width Le (``cluster_pallas.py:178``).
+def _order_hits(count, key, Le):
+    """Per-row hit counts (B0,) int32 and sort keys (B0, K) f32 (the entry
+    where a box is hit, BIG where not) -> near-ascending (meta, ids, nears,
+    cutoff) lists of width Le (``cluster_pallas.py:178``).
 
-    A stable sort of the entries (misses keyed BIG) orders each row's hit
-    boxes near to far, ties by box id.  Rows with more than Le hits keep the
-    Le nearest (trip = Le, overflow = 1) and a cutoff = the entry of the
-    first box left out; other rows carry cutoff = +inf."""
-    B0, K = hits.shape
-    count = hits.sum(dim=1).to(torch.int32)
-    key = torch.where(hits, entry, BIG)
+    A stable sort of the keys orders each row's hit boxes near to far, ties
+    by box id.  Rows with more than Le hits keep the Le nearest (trip = Le,
+    overflow = 1) and a cutoff = the entry of the first box left out; other
+    rows carry cutoff = +inf."""
+    B0, K = key.shape
     skey, sids = torch.sort(key, dim=1, stable=True)
     overflow = count > Le
     if K > Le:
         excl_entry = skey[:, Le]
     else:
-        excl_entry = torch.full((B0,), BIG, dtype=torch.float32, device=hits.device)
+        excl_entry = torch.full((B0,), BIG, dtype=torch.float32, device=key.device)
     ids = sids[:, :Le].to(torch.int32).contiguous()
     trip = torch.where(overflow, Le, count)
     meta = torch.stack([trip, overflow.to(torch.int32)], dim=1)
@@ -174,19 +176,34 @@ def _order_hits(hits, entry, Le):
     return meta, ids, skey[:, :Le].contiguous(), cutoff[:, None].contiguous()
 
 
-def cull_plain(o3, d3, bmin, bmax, Le, tmax=None):
-    """Plain torch K3: same inputs and outputs as :func:`cull`."""
-    hits, entry = _rowhit_scan(o3, _safe_inv(d3), bmin, bmax, tmax)
-    return _order_hits(hits, entry, Le)
+def cull_sweep_plain(o3, d3, bmin, bmax, tmax=None):
+    """Plain torch K3 sweep: same inputs and outputs as :func:`cull_sweep`
+    (the hit mask always)."""
+    hit, entry = _rowhit_scan(o3, _safe_inv(d3), bmin, bmax, tmax)
+    return hit.sum(dim=1, dtype=torch.int32), torch.where(hit, entry, BIG), hit
 
 
-def cull(o3, d3, bmin, bmax, Le, tmax=None):
-    """K3: per-row cluster cull (``cluster_pallas.py:310``).
+@functools.cache
+def build_cull() -> tuple:
+    """Build and load ``csrc/cull_rows.cu`` (``ops/cuda_build.py``);
+    returns ``(lib, info)``.  A failed build raises."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return bind("cull_rows", {"cull_rows_launch": [vp] * 5 + [ci, ci] + [vp] * 4})
+
+
+def cull_sweep(o3, d3, bmin, bmax, tmax=None, hits=False):
+    """K3's sweep: per 128-ray row, the exact per-lane slab test against
+    every box, reduced over the row's lanes.
 
     o3, d3: (3, B0, 128) f32; bmin, bmax: (K, 3) f32 boxes; tmax: None or
     (B0, 128) f32 (then a box counts only where near <= tmax).  Returns
-    (meta, ids, nears, cutoff) as in :func:`_order_hits`.  The lists only
-    steer the visits, so the inputs are taken detached."""
+    (count (B0,) int32 hit boxes a row, key (B0, K) f32 = the entry where
+    hit else BIG, hit (B0, K) bool or None): the kernel writes the hit mask
+    only when ``hits`` (the lists need count and key alone).  On CUDA
+    tensors it launches ``csrc/cull_rows.cu`` (built by ``nvcc`` for
+    ``sm_90a`` at first use, bound with ``ctypes``) and counts it in
+    ``LAUNCHES["cull"]``, or raises; on CPU tensors it takes
+    :func:`cull_sweep_plain`.  The inputs are taken detached."""
     o3, d3 = o3.detach(), d3.detach()
     if tmax is not None:
         tmax = tmax.detach()
@@ -199,15 +216,44 @@ def cull(o3, d3, bmin, bmax, Le, tmax=None):
     _check("bmax", bmax, (K, 3), torch.float32, device)
     if tmax is not None:
         _check("tmax", tmax, (B0, LANE), torch.float32, device)
+    if device.type == "cpu":
+        return cull_sweep_plain(o3, d3, bmin, bmax, tmax)
+    if bmin.data_ptr() % 16 or bmax.data_ptr() % 16:
+        raise ValueError("bmin and bmax must be 16-byte aligned")
+    lib, _ = build_cull()
+    key = torch.empty((B0, K), dtype=torch.float32, device=device)
+    count = torch.empty((B0,), dtype=torch.int32, device=device)
+    hit = torch.empty((B0, K), dtype=torch.bool, device=device) if hits else None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.cull_rows_launch(
+            o3.data_ptr(), d3.data_ptr(), None if tmax is None else tmax.data_ptr(),
+            bmin.data_ptr(), bmax.data_ptr(), B0, K, key.data_ptr(),
+            count.data_ptr(), None if hit is None else hit.data_ptr(), stream,
+        )
+    check_launch(lib, err, "cull")
+    LAUNCHES["cull"] += 1
+    return count, key, hit
+
+
+def cull_plain(o3, d3, bmin, bmax, Le, tmax=None):
+    """Plain torch K3: same inputs and outputs as :func:`cull`."""
+    return _order_hits(*cull_sweep_plain(o3, d3, bmin, bmax, tmax)[:2], Le)
+
+
+def cull(o3, d3, bmin, bmax, Le, tmax=None):
+    """K3: per-row cluster cull (``cluster_pallas.py:310``).
+
+    o3, d3: (3, B0, 128) f32; bmin, bmax: (K, 3) f32 boxes; tmax: None or
+    (B0, 128) f32 (then a box counts only where near <= tmax).  Returns
+    (meta, ids, nears, cutoff) as in :func:`_order_hits`: the sweep
+    (:func:`cull_sweep`), then the stable sort.  The lists only steer the
+    visits, so the inputs are taken detached."""
+    K = bmin.shape[0]
     if not 1 <= Le <= K:
         raise ValueError(f"list width Le={Le} must lie in [1, K={K}]")
-    if device.type == "cpu":
-        return cull_plain(o3, d3, bmin, bmax, Le, tmax)
-    from chiaroscuro_tpu_torch.ops import cull_triton
-
-    hits, entry = cull_triton.rowhit(o3, _safe_inv(d3), bmin, bmax, tmax)
-    LAUNCHES["cull"] += 1
-    return _order_hits(hits, entry, Le)
+    count, key, _ = cull_sweep(o3, d3, bmin, bmax, tmax)
+    return _order_hits(count, key, Le)
 
 
 # ---------------------------------------------------------------------------

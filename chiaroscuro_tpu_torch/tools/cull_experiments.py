@@ -165,15 +165,10 @@ def rowhit_dot(o3, d3, bmin, bmax, CK=None):
 
 
 def k3_rowhit(o3, d3, bmin, bmax, tmax=None):
-    """K3's (B0, K) hit mask: its Triton kernel on CUDA tensors (not
-    counted: the count belongs to ``cluster_cuda.cull``), its plain sweep on
-    CPU tensors."""
-    inv = cc._safe_inv(d3)
-    if o3.device.type == "cpu":
-        return cc._rowhit_scan(o3, inv, bmin, bmax, tmax)[0]
-    from chiaroscuro_tpu_torch.ops import cull_triton
-
-    return cull_triton.rowhit(o3, inv, bmin, bmax, tmax)[0]
+    """K3's (B0, K) hit mask: its sweep's hit output (``cluster_cuda.
+    cull_sweep``: the kernel on CUDA tensors, the plain sweep on CPU
+    tensors)."""
+    return cc.cull_sweep(o3, d3, bmin, bmax, tmax, hits=True)[2]
 
 
 def primary_rays(cam, xres, yres, dev):

@@ -8,10 +8,10 @@ raises, exits non-zero and prints no result line.
 
 1. Device and build: the card's name and power limit (nvidia-smi), torch's
    device name and count.  The CUDA sources (``csrc/intersect_dense.cu``
-   K1/K2, ``csrc/intersect_cluster.cu`` K4-K7, ``csrc/cull_rowhit.cu`` X1,
-   ``csrc/dma_min.cu`` X2) build in parallel, one nvcc each, while the
-   Triton cull K3 (``ops/cull_triton.py``) compiles; build seconds,
-   registers, shared memory and spills are printed.
+   K1/K2, ``csrc/cull_rows.cu`` K3, ``csrc/intersect_cluster.cu`` K4-K7,
+   ``csrc/cull_rowhit.cu`` X1, ``csrc/dma_min.cu`` X2) build in parallel,
+   one nvcc each; build seconds, registers, shared memory and spills are
+   printed, and K3's compiled instruction mix (``cuobjdump -sass``).
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
    Cornell (T = 36) and a seeded random soup (T = 4,096), B0 = 4,608 rows
    (one 768x768 wavefront) with a third of the rows dead: bitwise equal.
@@ -20,12 +20,14 @@ raises, exits non-zero and prints no result line.
    of the 1280x720 ``ATRIUM_CAMERA`` frame (B0 = 7,200), one cosine-sampled
    bounce wavefront from its hits and the NEE shadow wavefront, each sorted
    as the integrator sorts it on this path.  K3 must equal its plain version
-   exactly on every row (closest and shadow queries); K6/K7 must be bitwise
-   equal to theirs on a seeded sample of rows plus every row that overflowed
-   its list.  X1 (the row-hit cull of the tool path) on every row of the
+   exactly on every row (closest and shadow queries): its sweep's hit mask
+   and counts equal and keys bitwise, the lists with nears and cutoff
+   bitwise; K6/K7 must be bitwise equal to theirs on a seeded sample of
+   rows plus every row that overflowed its list.  X1 (the row-hit cull of the tool path) on every row of the
    primary wavefront, without tmax and with tmax = each ray's closest hit:
    exactly equal to its plain version and, sliced to K, to K3's hit mask;
-   timed beside K3's sweep and the whole K3 cull on the same rays.
+   timed beside K3's sweep and the whole K3 cull on the same rays.  K3's
+   sweep is also timed on 1 to 4 waves of resident blocks' worth of rows.
 2c. Resident cluster kernels at Sponza scale (``synthetic:atrium:262144``,
    261,396 triangles, K = 2,043, resident by the JAX rule): the same four
    wavefronts of its 1280x720 frame.  K3 exact on every row; K4/K5 bitwise
@@ -60,7 +62,9 @@ raises, exits non-zero and prints no result line.
 4. Timings (CUDA events, with the card's name and power limit): every
    kernel vs its plain version in us per launch, K4/K5 beside K6/K7 on the
    same lists with visits per launch, and each kernel's bound on the rows
-   it was timed on (K4-K7: the 256-row sample and every row).
+   it was timed on (K4-K7: the 256-row sample and every row); K3's sweep
+   and whole cull on every wavefront, each with its bound, beside the
+   Triton K3's times where they were taken (TRITON_K3_US).
 5. Gradients (``render_samples`` + ``backward``, the intersectors rebuilt on
    the parameter-substituted scene): (i) the card's value and gradients of
    the mean image w.r.t. kd, ke (and tri_v0 on Cornell, tex_data on the
@@ -78,15 +82,19 @@ raises, exits non-zero and prints no result line.
    each other, and X1 against its plain version at KB = 256, padded
    columns included) and ``tools/dma_min.main()``, with the tools' launch counts
    set to 0 before and read after; X2 bitwise equal to its plain version
-   at trip 0, 5, 16 and 19, and timed beside it and ``big[:trip*M].sum(0)``.
+   at trip 0, 5, 16 and 19, and timed beside it and ``big[:trip*M].sum(0)``:
+   the loop by CUDA events, and X2's and the library call's own kernel
+   time by torch.profiler over the same loop.
 
 The line before the last is a JSON object of the kernels: for each, the
 launches of its path (K1-K7: the main-path CLI runs, counts set to 0 before
 each run and read after it, summed over the runs; X1/X2: phase 6), its
-largest |kernel - plain|, its time and
-its plain version's on the stated inputs, and the bound: the larger of the
-FP32 operations those inputs need (visits counted per row; occlusion lanes
-tested only up to their first blocker) over the card's unfused FP32 rate and the bytes read and written once over its memory rate.
+largest |kernel - plain|, its time (X2 and its library call: kernel time by
+torch.profiler) and its plain version's on the stated inputs, and the
+bound: the larger of the FP32 operations those inputs need (visits counted
+per row; occlusion lanes tested only up to their first blocker) over the
+card's unfused FP32 rate and the bytes read and written once over its
+memory rate.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,6 +102,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -124,14 +133,24 @@ PEAK_BYTES = 3.35e12           # device memory bytes/s
 # FP32 operations of one Moller-Trumbore test (csrc/mt_core.cuh mt_hit):
 # p 9, a 5, |a| test 2, f 2, s 3, u 6, q 9, v 6, t 6, acceptance 6.
 MT_OPS = 54
-# FP32 operations of one (lane, box) slab test (ops/cull_triton.py): per
-# axis 2 sub, 2 mul, min, max (18); near/far across axes 4; hit 3; tmax 1;
-# max(near, 0), select, min-reduce 3.
-CULL_OPS = 29
+# FP32 operations of one (lane, box) slab test of K3 (csrc/cull_rows.cu,
+# planes chosen by the sign of 1/d): per axis 2 sub, 2 mul (12); near and
+# far across axes 4; max(near, 0), the hit compare, the +0.0, the select and
+# the lanes' minimum 5.  With tmax, 1 more.
+CULL_OPS = 21
 # FP32 operations of one (lane, box) row-hit test of X1
 # (csrc/cull_rowhit.cu): per axis 2 sub, 2 mul, min, max (18); near/far
 # across axes 4; hit 3; the row's any 1.  With tmax, 2 more.
 X1_OPS = 26
+# Boxes per chunk of K3's loop (csrc/cull_rows.cu kChunk), fully unrolled.
+CULL_CHUNK = 64
+
+# us of the Triton K3 that csrc/cull_rows.cu replaced, (sweep, whole cull),
+# on the same seeded wavefronts, NVIDIA H100 80GB HBM3 at 700.00 W; None
+# where it was not timed.
+TRITON_K3_US = {("atrium 481k", "primary"): (10027.9, 11397.2),
+                ("atrium:262144", "primary"): (None, 7566.4),
+                ("atrium:262144", "shadow"): (6845.6, 7787.0)}
 
 KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
               "closest_resident": "K4", "any_resident": "K5",
@@ -447,7 +466,9 @@ def run_visit(cc, kernel, lists, o3, d3, tmax, excl, packed, attrs, visits=None)
 
 def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_rows,
                     routes):
-    """K3 exact on every row; each route's visit kernels (K4/K5 resident,
+    """K3 exact on every row (its sweep's hit mask and counts equal, keys
+    bitwise and never -0.0; the lists, nears and cutoff bitwise); each
+    route's visit kernels (K4/K5 resident,
     K6/K7 stream) bitwise equal to the plain versions on a row sample (every
     row when ``all_rows``; else ROW_SAMPLE seeded rows plus every overflow
     row), and with both routes K4 vs K6 and K5 vs K7 bitwise on every row.
@@ -458,12 +479,18 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
     n_overflow_sampled = 0
     for wname, (o3, d3, tmax, excl, *le) in waves.items():
         wle = min(le[0], Le) if le else Le
+        sweep = cc.cull_sweep(o3, d3, bmin, bmax, tmax, hits=True)
+        plain_sweep = cc.cull_sweep_plain(o3, d3, bmin, bmax, tmax)
         lists = cc.cull(o3, d3, bmin, bmax, wle, tmax=tmax)
-        plain = cc.cull_plain(o3, d3, bmin, bmax, wle, tmax=tmax)
+        plain = cc._order_hits(*plain_sweep[:2], wle)
         sync()
-        for field, a, b in zip(("meta", "ids", "nears", "cutoff"), lists, plain):
-            if not torch.equal(a, b):
+        for field, a, b in zip(("count", "key", "hit", "meta", "ids", "nears", "cutoff"),
+                               (*sweep, *lists), (*plain_sweep, *plain)):
+            if not torch.equal(bits(a), bits(b)):
                 raise AssertionError(f"{name}/{wname}: K3 differs from plain in {field}")
+        if bool(torch.signbit(sweep[1]).any()):
+            raise AssertionError(f"{name}/{wname}: a K3 key is -0.0")
+        zero_boxes = int((sweep[2] & (sweep[1] == 0.0)).sum())
         errs["cull"] = max(errs["cull"], max_err(lists[2], plain[2]))
         meta = lists[0]
         nB0 = o3.shape[1]
@@ -505,7 +532,8 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
         trip = meta[:, 0].float()
         vs = (f"; {KERNEL_IDS[kernels[0]]} vs {KERNEL_IDS[kernels[1]]} on all {nB0} rows"
               if len(kernels) == 2 else "")
-        print(f"[cluster] {name}/{wname}: B0={nB0} Le={wle} trip p50={float(trip.median())} "
+        print(f"[cluster] {name}/{wname}: B0={nB0} Le={wle} K3 hit (row, box) pairs "
+              f"{int(sweep[0].sum())}, {zero_boxes} of them at entry +0.0; trip p50={float(trip.median())} "
               f"max={int(meta[:, 0].max())} overflow share={float(meta[:, 1].float().mean()):.5f} "
               f"({overflow.numel()} rows); {'/'.join(KERNEL_IDS[k] for k in kernels)} vs plain on "
               f"{rows.numel()} rows ({int(meta[rows, 1].sum())} overflow){vs}: "
@@ -514,7 +542,7 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
             raise AssertionError(f"{name}/{wname}: {bad}")
         inputs[wname] = (o3, d3, tmax, excl, lists, wle)
     ids = "/".join(KERNEL_IDS[k] for r in routes for k in cc.ROUTES[r])
-    print(f"[cluster] {name}: K3 equals plain on every row; {ids} bitwise on the samples "
+    print(f"[cluster] {name}: K3 equals plain on every row (keys bitwise); {ids} bitwise on the samples "
           f"({n_overflow_sampled} overflow rows among them)")
     return errs, inputs, n_overflow_sampled
 
@@ -579,7 +607,8 @@ def visit_bound(lists, o3, tmax, packed, visits, tests, hit_tris):
 
 
 def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
-    """For each wavefront: K3 on every row (against its plain version) and
+    """For each wavefront: K3's whole cull and its sweep alone on every row
+    (against its plain version) and
     each route's visit kernel on ROW_SAMPLE seeded rows against the plain
     version, in turns; the kernels also on every row.  The per-row visit
     counts of each kernel on the sample and on every row, and the bound of
@@ -595,16 +624,21 @@ def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
         stm = sex = None
         if tmax is not None:
             stm, sex = tmax[pick].contiguous(), excl[pick].contiguous()
-        k_us, p_us, ks, ps = time_pair(
-            lambda: cc.cull(o3, d3, bmin, bmax, wle, tmax=tmax),
-            lambda: cc.cull_plain(o3, d3, bmin, bmax, wle, tmax=tmax),
-            reps_kernel=10, reps_plain=1)
+        k3 = time_turns({
+            "plain": lambda: cc.cull_plain(o3, d3, bmin, bmax, wle, tmax=tmax),
+            "cull": lambda: cc.cull(o3, d3, bmin, bmax, wle, tmax=tmax),
+            "sweep": lambda: cc.cull_sweep(o3, d3, bmin, bmax, tmax),
+        }, {"plain": 1, "cull": 10, "sweep": 10})
         K = bmin.shape[0]
-        ops = CULL_OPS * nB0 * 128 * K
-        nbytes = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + K * 24 \
-            + nB0 * (12 + 8 * wle)
-        timings[("cull", wname)] = dict(us=k_us, plain_us=p_us, turns=ks, plain_turns=ps,
-                                        bound=bound(ops, nbytes), rows=nB0)
+        ops = (CULL_OPS + (tmax is not None)) * nB0 * 128 * K
+        # Rays and boxes read once; the lists (whole cull) or the keys and
+        # counts (sweep) written once.
+        reads = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + K * 24
+        timings[("cull", wname)] = dict(
+            us=k3["cull"][0], turns=k3["cull"][1], plain_us=k3["plain"][0],
+            plain_turns=k3["plain"][1], sweep_us=k3["sweep"][0], sweep_turns=k3["sweep"][1],
+            bound=bound(ops, reads + nB0 * (12 + 8 * wle)),
+            sweep_bound=bound(ops, reads + nB0 * (4 + 4 * K)), rows=nB0)
         closest = tmax is None
         kernels = visit_kernels(cc, routes, closest)
         fns = {"plain": (lambda: cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs))
@@ -651,16 +685,33 @@ def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
     return timings
 
 
-def compare_x1(xc, cc, cull_triton, what, o3, d3, tmax, bmin, bmax, boxes):
+def k3_waves(cc, card, o3, d3, bmin, bmax):
+    """K3's sweep on the first n rows of (o3, d3) for n = 1 to 4 waves of
+    resident blocks (16 a multiprocessor: the kernel's launch bounds) and
+    the 1280x720 wavefront's 7,200 rows between them: whether a last,
+    partial wave costs a whole wave's time (then splitting rows' boxes
+    across blocks would pay) or its share of the rows."""
+    per_wave = torch.cuda.get_device_properties(0).multi_processor_count * 16
+    sizes = sorted({per_wave * w for w in (1, 2, 3, 4)} | {7200})
+    parts = []
+    for n in (n for n in sizes if n <= o3.shape[1]):
+        so3, sd3 = o3[:, :n].contiguous(), d3[:, :n].contiguous()
+        cc.cull_sweep(so3, sd3, bmin, bmax)
+        sync()
+        us = time_us(lambda: cc.cull_sweep(so3, sd3, bmin, bmax), 10)
+        parts.append(f"{n} rows {us:.1f} us ({us * per_wave / n:.1f} per {per_wave} rows)")
+    print(f"[timing] {card}: K3 sweep by rows, K={bmin.shape[0]}: " + "; ".join(parts))
+
+
+def compare_x1(xc, cc, what, o3, d3, tmax, bmin, bmax, boxes):
     """X1 on every row of a wavefront: exactly equal to its plain version
     (padded columns 1.0 in every row), and ``rowhit[:, :K] > 0`` exactly
-    K3's hit mask; then timed in turns beside K3's Triton sweep and the
-    whole K3 cull on the same rays.  Returns the timings and the bound."""
+    K3's hit mask; then timed in turns beside K3's sweep and the whole K3
+    cull on the same rays.  Returns the timings and the bound."""
     K, KB, nB0 = bmin.shape[0], boxes.shape[0], o3.shape[1]
-    inv = cc._safe_inv(d3)
     got = xc.cull_rowhit(o3, d3, boxes, tmax)
     want = xc.cull_rowhit_plain(o3, d3, boxes, tmax)
-    k3_hit, _ = cull_triton.rowhit(o3, inv, bmin, bmax, tmax)
+    k3_hit = xc.k3_rowhit(o3, d3, bmin, bmax, tmax)
     sync()
     if not torch.equal(got, want):
         raise AssertionError(f"{what}: X1 differs from its plain version")
@@ -672,7 +723,7 @@ def compare_x1(xc, cc, cull_triton, what, o3, d3, tmax, bmin, bmax, boxes):
     t = time_turns({
         "plain": lambda: xc.cull_rowhit_plain(o3, d3, boxes, tmax),
         "x1": lambda: xc.cull_rowhit(o3, d3, boxes, tmax),
-        "k3 sweep": lambda: cull_triton.rowhit(o3, inv, bmin, bmax, tmax),
+        "k3 sweep": lambda: cc.cull_sweep(o3, d3, bmin, bmax, tmax),
         "k3 cull": lambda: cc.cull(o3, d3, bmin, bmax, Le, tmax=tmax),
     }, {"plain": 1, "x1": 10, "k3 sweep": 10, "k3 cull": 10})
     ops = (X1_OPS + (2 if tmax is not None else 0)) * nB0 * 128 * K
@@ -701,10 +752,16 @@ def print_cluster_timings(card, scene_name, ctimings):
         kid = KERNEL_IDS[kern]
         b_ms, b_by = val["bound"]
         if kern == "cull":
-            print(f"[timing] {card}: {kid} cull {scene_name} {wname} B0={val['rows']}: kernel "
+            s_ms, s_by = val["sweep_bound"]
+            tri = TRITON_K3_US.get((scene_name, wname))
+            tri = "" if tri is None else "; the Triton K3 it replaced: sweep {}, cull {} us".format(
+                *("not timed" if x is None else x for x in tri))
+            print(f"[timing] {card}: {kid} {scene_name} {wname} B0={val['rows']}: sweep "
+                  f"{val['sweep_us']:.1f} us (turns {val['sweep_turns'][0]:.1f}, "
+                  f"{val['sweep_turns'][1]:.1f}), bound {s_ms * 1e3:.1f} us ({s_by}); whole cull "
                   f"{val['us']:.1f} us (turns {val['turns'][0]:.1f}, {val['turns'][1]:.1f}), "
-                  f"plain {val['plain_us']:.1f} us (turns {val['plain_turns'][0]:.1f}, "
-                  f"{val['plain_turns'][1]:.1f}); bound {b_ms * 1e3:.1f} us ({b_by})")
+                  f"bound {b_ms * 1e3:.1f} us ({b_by}); plain {val['plain_us']:.1f} us (turns "
+                  f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}){tri}")
         else:
             a_ms, a_by = val["bound_all"]
             print(f"[timing] {card}: {kid} {kern} {scene_name} {wname}, sample of {ROW_SAMPLE} "
@@ -804,8 +861,8 @@ def profile(fn, label, card):
             continue
         name = e.key
         n_kernels += e.count
-        if "cull_kernel" in name:
-            layer = "K3 cull_kernel"
+        if "cull_rows_kernel" in name:
+            layer = "K3 cull_rows"
         elif "closest_cluster_kernel<false>" in name:
             layer = "K4 closest_resident"
         elif "any_cluster_kernel<false>" in name:
@@ -839,6 +896,57 @@ def profile(fn, label, card):
         if layer in per_launch:
             extra = f" ({per_launch[layer][1]} launches, {per_launch[layer][0] / 1e3:.2f} ms each)"
         print(f"[profile]   {layer}: {us / 1e3:.2f} ms ({100 * us / 1e3 / busy:.1f}% of busy){extra}")
+
+
+def sass_mix(path, kernel, per):
+    """Print the opcode counts of each compiled variant of ``kernel`` in the
+    library at ``path`` (``cuobjdump -sass``), and each count / ``per``: the
+    kernel's loop over a chunk of ``per`` boxes is fully unrolled, so that
+    is the count per box (the code outside the loop adds a few)."""
+    from chiaroscuro_tpu_torch.ops.cuda_build import nvcc
+
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", path], capture_output=True, text=True, timeout=120) \
+        if os.path.exists(tool) else None
+    if proc is None or proc.returncode != 0:
+        print(f"[build] cuobjdump -sass {os.path.basename(path)} failed: not counted")
+        return
+    mixes, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            mixes[name] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if name is not None and m:
+            mixes[name][m.group(1)] = mixes[name].get(m.group(1), 0) + 1
+    for name, mix in mixes.items():
+        if kernel not in name:
+            continue
+        keys = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "SEL", "FSEL", "LOP3", "ISETP",
+                "REDUX", "LDS", "STS", "BAR")
+        parts = ", ".join(f"{k} {mix.get(k, 0)} ({mix.get(k, 0) / per:.2f})" for k in keys)
+        print(f"[build] sass {name}: {sum(mix.values())} instructions; per box of {per}: {parts}")
+
+
+def device_us(fn, reps, name=None):
+    """Device microseconds per call of ``fn`` over ``reps`` calls, by
+    torch.profiler: the summed time of the CUDA kernels the calls ran (only
+    those whose name holds ``name``, where given); None where the profiler
+    recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and (name is None or name in e.key))
+    return us / reps if us > 0 else None
 
 
 def profile_frame(renderer, card):
@@ -916,7 +1024,6 @@ def main() -> int:
     from chiaroscuro_tpu_torch.accel.clusters import build_clusters
     from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
-    from chiaroscuro_tpu_torch.ops import cull_triton
     from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
     from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
     from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
@@ -943,27 +1050,16 @@ def main() -> int:
     print(f"[device] nvidia-smi: {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        builds = [pool.submit(b) for b in (ic.build, cc.build, xc.build, dm.build)]
-        # Meanwhile compile both Triton variants with one tiny launch each.
-        t_tri = time.perf_counter()
-        # (B0 and K multiples of 16, as at the atrium: Triton specializes on it.)
-        o = torch.zeros((3, 16, 128), device=dev)
-        box = torch.zeros((16, 3), device=dev)
-        cull_triton.rowhit(o, o, box, box)
-        cull_triton.rowhit(o, o, box, box, tmax=torch.zeros((16, 128), device=dev))
-        sync()
-        t_tri = time.perf_counter() - t_tri
-        infos = [f.result()[1] for f in builds]
-    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s; Triton K3 compile "
-          f"{t_tri:.2f} s (cache {os.environ.get('TRITON_CACHE_DIR')})")
-    for line in cull_triton.compile_report():
-        print(f"[build] {line}")
+    builders = (ic.build, cc.build_cull, cc.build, xc.build, dm.build)
+    with ThreadPoolExecutor(len(builders)) as pool:
+        infos = [f.result()[1] for f in [pool.submit(b) for b in builders]]
+    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
     for info in infos:
         print(f"[build] {os.path.relpath(info['path'], repo)}: nvcc {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
+    sass_mix(cc.build_cull()[1]["path"], "cull_rows_kernel", CULL_CHUNK)
 
     # --- phase 2: dense kernels vs plain ---------------------------------------
     rng = np.random.default_rng(20261016)
@@ -1011,12 +1107,14 @@ def main() -> int:
             routes=("stream",))
         ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng,
                                 routes=("stream",))
+        k3_waves(cc, card, *(torch.cat([waves["primary"][i], waves["bounce"][i]], 1)
+                             for i in (0, 1)), bmin, bmax)
         boxes = torch.from_numpy(xc.pack_cull_boxes(ca.bbox_min, ca.bbox_max)).to(dev)
         x1_times = {
-            "481k primary": compare_x1(xc, cc, cull_triton, "atrium 481k primary",
+            "481k primary": compare_x1(xc, cc, "atrium 481k primary",
                                        *waves["primary"][:3], bmin, bmax, boxes),
             "481k primary, tmax = hit t": compare_x1(
-                xc, cc, cull_triton, "atrium 481k primary, tmax = the closest hit's t",
+                xc, cc, "atrium 481k primary, tmax = the closest hit's t",
                 *waves["primary"][:2], primary_t, bmin, bmax, boxes),
         }
     if n_over == 0:
@@ -1064,7 +1162,7 @@ def main() -> int:
         mtimings = time_cluster(cc, mid_inputs, m_bmin, m_bmax, m_packed, m_attrs, rng,
                                 routes=("resident", "stream"))
         x1_times["262k shadow"] = compare_x1(
-            xc, cc, cull_triton, f"atrium:{MID_TRIS} shadow", *m_waves["shadow"][:3], m_bmin,
+            xc, cc, f"atrium:{MID_TRIS} shadow", *m_waves["shadow"][:3], m_bmin,
             m_bmax, torch.from_numpy(xc.pack_cull_boxes(mca.bbox_min, mca.bbox_max)).to(dev))
     if n_over == 0 or s_over == 0:
         raise AssertionError("no overflow row was compared: phase 2 of K4/K5 went unchecked")
@@ -1325,16 +1423,25 @@ def main() -> int:
             torch.tensor([[dm.K, 0]], dtype=torch.int32, device=dev), x2_x))):
         raise AssertionError("the repro's X2 output differs from its plain version")
     full = torch.tensor([[dm.K, 0]], dtype=torch.int32, device=dev)
-    x2_t = time_turns({
+    x2_fns = {
         "plain": lambda: dm.dma_min_plain(full, x2_x),
         "x2": lambda: dm.dma_min(full, x2_x),
         "library": lambda: x2_x[:dm.K * dm.M].sum(0),
-    }, {"plain": 10, "x2": 100, "library": 100})
+    }
+    x2_t = time_turns(x2_fns, {"plain": 10, "x2": 100, "library": 100})
+    # The kernels' own time over the same loops, apart from the host's
+    # dispatch (which the event loop includes): X2's kernel by name, and
+    # every kernel the library call runs.
+    x2_dev = {"x2": device_us(x2_fns["x2"], 100, "dma_min_kernel"),
+              "library": device_us(x2_fns["library"], 100)}
     # X2 reads trip's K distinct blocks once and adds trip x M x W values.
     x2_bound = bound(dm.K * dm.M * dm.W, 8 + dm.K * dm.M * dm.W * 4 + dm.W * 4)
     print(f"[tools] launches {tool_launches} in {t_tools:.1f} s")
-    print(f"[timing] {card}: X2 dma_min trip {dm.K}: "
+    print(f"[timing] {card}: X2 dma_min trip {dm.K}, loop of calls by CUDA events: "
           + ", ".join(f"{n} {m:.2f} us (turns {a:.2f}, {c:.2f})" for n, (m, (a, c)) in x2_t.items())
+          + "; kernel time by torch.profiler: "
+          + ", ".join(f"{n} {'not measured' if u is None else f'{u:.2f} us'}"
+                      for n, u in x2_dev.items())
           + f"; bound {x2_bound[0] * 1e3:.3f} us ({x2_bound[1]})")
     # Launches above for comparison and timing do not count: the counts
     # are the tool phase's.
@@ -1352,6 +1459,9 @@ def main() -> int:
         return entry(name, "cuda", "chiaroscuro_tpu_torch/csrc/intersect_cluster.cu",
                      replaces, cluster_errs[name], t["us"] / 1e3, t["plain_us"] / 1e3, t["bound"])
 
+    # X2 and its library call by their kernel time where the profiler gave
+    # it, else by the event loop.
+    x2_ms = {n: (x2_t[n][0] if u is None else u) / 1e3 for n, u in x2_dev.items()}
     ct = timings[("closest", "cornell")]
     at = timings[("any", "cornell")]
     cull_t = ctimings[("cull", "primary")]
@@ -1363,7 +1473,7 @@ def main() -> int:
         entry("any_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
               "chiaroscuro_tpu/ops/intersect_pallas.py:339", err, at[0] / 1e3, at[1] / 1e3,
               dense_bound[1]),
-        entry("cull", "triton", "chiaroscuro_tpu_torch/ops/cull_triton.py",
+        entry("cull", "cuda", "chiaroscuro_tpu_torch/csrc/cull_rows.cu",
               "chiaroscuro_tpu/ops/cluster_pallas.py:310", cluster_errs["cull"],
               cull_t["us"] / 1e3, cull_t["plain_us"] / 1e3, cull_t["bound"]),
         visit_entry("closest_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:485",
@@ -1380,9 +1490,8 @@ def main() -> int:
               x1_t["t"]["plain"][0] / 1e3, x1_t["bound"],
               launches=tool_launches["cull_rowhit"]),
         entry("dma_min", "cuda", "chiaroscuro_tpu_torch/csrc/dma_min.cu",
-              "tools/_tpu_dma_min.py:9", x2_err, x2_t["x2"][0] / 1e3, x2_t["plain"][0] / 1e3,
-              x2_bound, launches=tool_launches["dma_min"],
-              library_ms=x2_t["library"][0] / 1e3),
+              "tools/_tpu_dma_min.py:9", x2_err, x2_ms["x2"], x2_t["plain"][0] / 1e3,
+              x2_bound, launches=tool_launches["dma_min"], library_ms=x2_ms["library"]),
     ]
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:

@@ -1,6 +1,6 @@
 """The cluster path on the CPU: the plain K3 cull and the plain K4-K7 visits
 against the JAX package and the brute oracle, and the intersector contract
-(the Triton/CUDA kernels against these plain versions on a card:
+(the CUDA kernels against these plain versions on a card:
 tests/test_torch_cuda.py).
 
 Both packages cull and visit the very same clusters: the JAX
@@ -298,7 +298,8 @@ def test_order_hits_sort_is_stable_on_ties():
     entry left off the list."""
     entry = torch.tensor([[2.0, 1.0, 1.0, 3.0, 1.0, 1.0, 1.0, 0.5]])
     hits = torch.tensor([[True, True, True, True, False, True, True, True]])
-    meta, ids, nears, cutoff = cc._order_hits(hits, entry, 4)
+    count = hits.sum(dim=1, dtype=torch.int32)
+    meta, ids, nears, cutoff = cc._order_hits(count, torch.where(hits, entry, cc.BIG), 4)
     assert ids.tolist() == [[7, 1, 2, 5]]
     assert nears.tolist() == [[0.5, 1.0, 1.0, 1.0]]
     assert meta.tolist() == [[4, 1]] and cutoff.tolist() == [[1.0]]

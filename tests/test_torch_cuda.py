@@ -1,6 +1,6 @@
-"""The CUDA and Triton kernels against their plain torch versions, on a
-card: K1/K2 (dense), K3 (the cluster cull), K4/K5 (the resident cluster
-visits) and K6/K7 (the streaming ones), X1 (the row-hit cull) and X2 (the
+"""The CUDA kernels against their plain torch versions, on a
+card: K1/K2 (dense), K3 (the cluster cull, also on its edge cases), K4/K5
+(the resident cluster visits) and K6/K7 (the streaming ones), X1 (the row-hit cull) and X2 (the
 double-buffered block fetch); K4/K5 also against K6/K7, and the card's
 gradients against the CPU's.
 
@@ -12,7 +12,8 @@ without it:
 
 On the card the kernels must equal their plain versions bitwise: they are
 built with ``-fmad=false`` and keep the plain version's operand order; the
-cull has no multiply-add to contract.
+cull has no multiply-add to contract, and its sign-chosen planes change no
+rounding (tests/test_torch_cull.py).
 """
 
 import numpy as np
@@ -204,6 +205,90 @@ def test_resident_kernels_equal_streaming_and_plain(lmax, cuda_device):
     for got, ref, meta in ((v4, v6, lists[0]), (v5, v7, slists[0])):
         assert bool((got >= ref).all()) and bool((ref >= 0).all())
         assert bool((got <= meta[:, 0] + K).all()) and int(ref.sum()) > 0
+
+
+def _cull_inputs(dev, B0_, K, with_tmax, axis_parallel, on_planes, seed):
+    """Seeded boxes in the unit cube (the first three nested around the
+    centre) and B0_ rows of rays: with ``axis_parallel`` a share of +-0
+    direction components; with ``on_planes`` every third lane starts on a
+    box's entry plane (near = -0.0 on a hi side) and row 0 at the centre,
+    inside several boxes."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0.0, 0.9, (K, 3))
+    hi = lo + rng.uniform(0.02, 0.3, (K, 3))
+    for k, s in enumerate((0.1, 0.2, 0.4)[:K]):
+        lo[k], hi[k] = 0.5 - s, 0.5 + s
+    lo, hi = lo.astype(np.float32), hi.astype(np.float32)
+    n = B0_ * 128
+    o = rng.uniform(-0.2, 1.2, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    if axis_parallel:
+        zero = rng.uniform(size=(n, 3)) < 0.3
+        d[zero] = np.where(rng.uniform(size=zero.sum()) < 0.5, 0.0, -0.0)
+    if on_planes:
+        for i in range(0, n, 3):
+            k, a = rng.integers(K), rng.integers(3)
+            o[i] = lo[k] + (hi[k] - lo[k]) * rng.uniform(0.1, 0.9, 3).astype(np.float32)
+            hi_side = rng.uniform() < 0.5
+            o[i, a] = hi[k, a] if hi_side else lo[k, a]
+            d[i, a] = -abs(d[i, a]) - 0.1 if hi_side else abs(d[i, a]) + 0.1
+        o[:128] = 0.5
+    planar = lambda x: np.ascontiguousarray(x.T.reshape(3, B0_, 128))
+    t = {"o3": planar(o), "d3": planar(d), "bmin": lo, "bmax": hi,
+         "tmax": rng.uniform(0.0, 1.0, (B0_, 128)).astype(np.float32) if with_tmax else None}
+    return {k: None if v is None else torch.from_numpy(v).to(dev) for k, v in t.items()}
+
+
+CULL_CASES = {
+    # name: (B0, K, tmax, axis-parallel lanes, origins on planes)
+    "one row": (1, 150, False, False, False),
+    "one box": (3, 1, False, True, False),
+    "K not a multiple of the chunk": (5, 150, False, False, False),
+    "K not a multiple of the chunk, tmax": (5, 150, True, False, False),
+    "axis-parallel directions": (4, 64, False, True, False),
+    "origins on box planes": (4, 130, False, False, True),
+    "origins on box planes, tmax": (4, 130, True, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CULL_CASES))
+def test_k3_equals_plain_on_card(case, cuda_device):
+    """K3 (``csrc/cull_rows.cu``) against its plain sweep on the same card
+    tensors: hit mask and count exact, keys bitwise (+0.0 entries); with
+    and without the hit output; the lists of ``cull`` exact (nears and
+    cutoff bitwise) at a width that overflows and one that does not."""
+    B0_, K, with_tmax, axis_parallel, on_planes = CULL_CASES[case]
+    t = _cull_inputs(cuda_device, B0_, K, with_tmax, axis_parallel, on_planes,
+                     seed=list(CULL_CASES).index(case))
+    args = (t["o3"], t["d3"], t["bmin"], t["bmax"], t["tmax"])
+    before = cc.LAUNCHES["cull"]
+    count, key, hit = cc.cull_sweep(*args, hits=True)
+    count2, key2, none = cc.cull_sweep(*args)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["cull"] == before + 2 and none is None
+    p_count, p_key, p_hit = cc.cull_sweep_plain(*args)
+    assert torch.equal(hit, p_hit) and torch.equal(count, p_count) and torch.equal(count2, count)
+    assert torch.equal(_bits(key), _bits(p_key)) and torch.equal(_bits(key2), _bits(key))
+    assert not bool(torch.signbit(key).any())
+    if on_planes:
+        assert bool((hit & (key == 0.0)).any())
+    for le in {1, min(4, K), K}:
+        got = cc.cull(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+        want = cc.cull_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+        for field, a, b in zip(("meta", "ids", "nears", "cutoff"), got, want):
+            assert torch.equal(_bits(a), _bits(b)), (le, field)
+
+
+@pytest.mark.cuda
+def test_k3_checks_alignment_on_card(cuda_device):
+    """A CUDA tensor never falls back to the plain sweep: boxes that are
+    not 16-byte aligned raise before launch."""
+    t = _cull_inputs(cuda_device, 2, 10, False, False, False, seed=3)
+    shifted = torch.empty(31, device=cuda_device)[1:].view(10, 3)
+    shifted.copy_(t["bmin"])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cc.cull_sweep(t["o3"], t["d3"], shifted, t["bmax"])
 
 
 def _x1_inputs(dev):
