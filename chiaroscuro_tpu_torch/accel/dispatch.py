@@ -4,7 +4,9 @@ The integrator (``render/integrator.py``) is agnostic to how rays are
 intersected; this module picks the backend:
 
 - ``"dense"``   — the dense kernels K1/K2 (``ops/intersect_cuda.py``):
-  CUDA on a GPU, their plain torch versions on the CPU;
+  CUDA on a GPU, their plain torch versions on the CPU; ``"pallas"``, the
+  JAX package's name for the dense Pallas sweep that K1/K2 port, selects
+  the same pair, so a ``.rtc`` written for that package renders;
 - ``"cluster"`` — the cluster cull K3, then the resident visits K4/K5 or
   the streaming visits K6/K7 (``ops/cluster_cuda.py``): CUDA on
   a GPU, their plain torch versions on the CPU.  The route follows the JAX
@@ -75,7 +77,7 @@ def make_intersectors(
     if method == "auto":
         method = resolve_auto(scene.n_tris, scene.device.type == "cuda")
 
-    if method == "dense":
+    if method in ("dense", "pallas"):
         from chiaroscuro_tpu_torch.ops.intersect_cuda import (
             make_dense_intersectors,
         )
@@ -101,9 +103,9 @@ def make_intersectors(
     if method == "cluster":
         return cluster_cuda.make_cluster_intersectors(scene, clusters=clusters)
 
-    if method in ("bvh", "pallas"):
+    if method == "bvh":
         raise NotImplementedError(
-            f"intersector {method!r} is not ported; use 'dense' or "
-            "'cluster' (the CUDA kernels), 'brute' or 'auto'"
+            "intersector 'bvh' is not ported yet (ROADMAP item 10); use "
+            "'dense' or 'cluster' (the CUDA kernels), 'brute' or 'auto'"
         )
     raise ValueError(f"unknown intersector method: {method!r}")

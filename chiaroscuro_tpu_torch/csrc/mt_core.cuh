@@ -31,14 +31,17 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o3,
              d3[i], d3[plane + i], d3[2 * plane + i]};
 }
 
-// One triangle's nine fields v0|e1|e2, `stride` floats apart: 1 for the
-// dense kernels' (T, 9) rows, M for a cluster block's field-major rows.
-__device__ __forceinline__ bool mt_hit(const Ray& r, const float* tri,
-                                       int stride, float& t, float& u,
-                                       float& v) {
-  const float v0x = tri[0 * stride], v0y = tri[1 * stride], v0z = tri[2 * stride];
-  const float e1x = tri[3 * stride], e1y = tri[4 * stride], e1z = tri[5 * stride];
-  const float e2x = tri[6 * stride], e2y = tri[7 * stride], e2z = tri[8 * stride];
+// One triangle's nine fields v0|e1|e2.
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+// The test on a triangle held in registers.
+__device__ __forceinline__ bool mt_test(const Ray& r, const Tri& tri,
+                                        float& t, float& u, float& v) {
+  const float v0x = tri.v0x, v0y = tri.v0y, v0z = tri.v0z;
+  const float e1x = tri.e1x, e1y = tri.e1y, e1z = tri.e1z;
+  const float e2x = tri.e2x, e2y = tri.e2y, e2z = tri.e2z;
   // p = cross(d, e2)
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
@@ -58,6 +61,19 @@ __device__ __forceinline__ bool mt_hit(const Ray& r, const float* tri,
   t = f * (e2x * qx + e2y * qy + e2z * qz);
   return nonpar && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
          t >= 0.0f;
+}
+
+// The test on a triangle whose nine fields lie `stride` floats apart in
+// memory: 1 for the dense kernels' (T, 9) rows, M for a cluster block's
+// field-major rows.
+__device__ __forceinline__ bool mt_hit(const Ray& r, const float* tri,
+                                       int stride, float& t, float& u,
+                                       float& v) {
+  return mt_test(r,
+                 Tri{tri[0 * stride], tri[1 * stride], tri[2 * stride],
+                     tri[3 * stride], tri[4 * stride], tri[5 * stride],
+                     tri[6 * stride], tri[7 * stride], tri[8 * stride]},
+                 t, u, v);
 }
 
 // The winner's 32 attributes from the original-order (T, 32) table, written

@@ -17,10 +17,13 @@ The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
   (``_stream_any_kernel`` :750).  Each visits the listed clusters near to
   far with early exit, then sweeps all K clusters for overflow rows
   (``csrc/intersect_cluster.cu``, built by ``nvcc`` for ``sm_90a`` at first
-  use, bound with ``ctypes``).  The resident pair reads each visited block
-  straight from global memory (the matrix fits the card's L2 wherever the
-  JAX rule picks it) and votes on the early exit once per 8 visits; the
-  streaming pair stages each block through shared memory.
+  use, bound with ``ctypes``).  The streaming pair walks a row's list with
+  the whole block, staging each cluster through shared memory and voting
+  after every visit; in the resident pair each of the row's four warps
+  walks the list on its own and votes after every visit over its 32 lanes
+  (K4 bulk-copies each block into the warp's ring in shared memory, K5
+  reads it in place with an L1 prefetch).  :func:`visit_counts_plain`
+  replays either exit rule in torch.
 - :func:`make_cluster_intersectors` picks the pair by the JAX package's
   rule (:func:`streams_by_budget`) and exposes it as ``.route``
   (``"resident"`` or ``"stream"``).
@@ -104,6 +107,8 @@ NO_ID = int(np.iinfo(np.int32).max)
 # Plain versions evaluate about this many (lane, box) or (lane, triangle)
 # pairs at a time, so their memory stays O(pairs).
 _PLAIN_PAIRS = 1 << 22
+# Warps of a 128-lane row: the resident kernels walk and count per warp.
+WARPS = 4
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +204,9 @@ def cull_sweep(o3, d3, bmin, bmax, tmax=None, hits=False):
     (B0, 128) f32 (then a box counts only where near <= tmax).  Returns
     (count (B0,) int32 hit boxes a row, key (B0, K) f32 = the entry where
     hit else BIG, hit (B0, K) bool or None): the kernel writes the hit mask
-    only when ``hits`` (the lists need count and key alone).  On CUDA
+    only when ``hits`` (the lists need count and key alone).  With K = 0
+    there is no box to test: count is zero, key and hit have no column, and
+    nothing is launched (on either device).  On CUDA
     tensors it launches ``csrc/cull_rows.cu`` (built by ``nvcc`` for
     ``sm_90a`` at first use, bound with ``ctypes``) and counts it in
     ``LAUNCHES["cull"]``, or raises; on CPU tensors it takes
@@ -216,6 +223,10 @@ def cull_sweep(o3, d3, bmin, bmax, tmax=None, hits=False):
     _check("bmax", bmax, (K, 3), torch.float32, device)
     if tmax is not None:
         _check("tmax", tmax, (B0, LANE), torch.float32, device)
+    if K == 0:
+        return (torch.zeros((B0,), dtype=torch.int32, device=device),
+                torch.empty((B0, 0), dtype=torch.float32, device=device),
+                torch.empty((B0, 0), dtype=torch.bool, device=device) if hits else None)
     if device.type == "cpu":
         return cull_sweep_plain(o3, d3, bmin, bmax, tmax)
     if bmin.data_ptr() % 16 or bmax.data_ptr() % 16:
@@ -288,34 +299,51 @@ def closest_cluster_plain(meta, ids, nears, cutoff, o3, d3, packed, attrs):
     does without."""
     B0 = o3.shape[1]
     K = packed.shape[0]
-    dev = o3.device
-    best_t = torch.full((B0, LANE), BIG, dtype=torch.float32, device=dev)
-    best_id = torch.full((B0, LANE), NO_ID, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((B0, LANE), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((B0, LANE), dtype=torch.float32, device=dev)
+    best_t, best_id, best_u, best_v = _closest_init((B0, LANE), o3.device)
     for b in range(B0):
         o = tuple(o3[a, b][None] for a in range(3))          # (1, 128)
         d = tuple(d3[a, b][None] for a in range(3))
-        bt, bi, bu, bv = best_t[b], best_id[b], best_u[b], best_v[b]
+        best = best_t[b], best_id[b], best_u[b], best_v[b]
         for v0, e1, e2, oid in _tri_chunks(packed, _row_clusters(meta, ids, b, K)):
             ok, t, u, v = _mt_core(o, d, v0, e1, e2)         # (C, 128)
-            valid = ok & (t < BIG)
-            tm = torch.where(valid, t, BIG)
-            tmin = tm.amin(dim=0)
-            at_min = valid & (tm == tmin)
-            idsel = torch.where(at_min, oid[:, None], NO_ID).amin(dim=0)
-            # One-hot per lane (ids are unique); the winner's own t, u, v.
-            sel = at_min & (oid[:, None] == idsel)
-            pos = sel.to(torch.int8).argmax(dim=0, keepdim=True)
-            ct = t.gather(0, pos)[0]
-            better = sel.any(dim=0) & (
-                (ct < bt) | ((ct == bt) & (idsel < bi))
-            )
-            bt = torch.where(better, ct, bt)
-            bi = torch.where(better, idsel, bi)
-            bu = torch.where(better, u.gather(0, pos)[0], bu)
-            bv = torch.where(better, v.gather(0, pos)[0], bv)
-        best_t[b], best_id[b], best_u[b], best_v[b] = bt, bi, bu, bv
+            best = _merge_closest(best, ok, t, u, v, oid[:, None], 0)
+        best_t[b], best_id[b], best_u[b], best_v[b] = best
+    return _closest_out(best_t, best_id, best_u, best_v, attrs)
+
+
+def _closest_init(shape, device):
+    """Running (t, id, u, v) before any hit: BIG, NO_ID, 0, 0."""
+    return (torch.full(shape, BIG, dtype=torch.float32, device=device),
+            torch.full(shape, NO_ID, dtype=torch.int32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def _merge_closest(best, ok, t, u, v, oid, dim):
+    """Fold tests into the running (t, id, u, v): the lexicographic (t,
+    original id) minimum over the valid hits (ok and t < BIG) along ``dim``
+    of ok/t/u/v, ``oid`` the tests' ids broadcast against them.  Order-free,
+    so any grouping of the visits gives the kernels' answer."""
+    bt, bi, bu, bv = best
+    valid = ok & (t < BIG)
+    tm = torch.where(valid, t, BIG)
+    at_min = valid & (tm == tm.amin(dim=dim, keepdim=True))
+    idsel = torch.where(at_min, oid, NO_ID).amin(dim=dim, keepdim=True)
+    # One-hot per lane (ids are unique); the winner's own t, u, v.
+    sel = at_min & (oid == idsel)
+    pos = sel.to(torch.int8).argmax(dim=dim, keepdim=True)
+    ct = t.gather(dim, pos).squeeze(dim)
+    idsel = idsel.squeeze(dim)
+    better = sel.any(dim=dim) & ((ct < bt) | ((ct == bt) & (idsel < bi)))
+    return (torch.where(better, ct, bt), torch.where(better, idsel, bi),
+            torch.where(better, u.gather(dim, pos).squeeze(dim), bu),
+            torch.where(better, v.gather(dim, pos).squeeze(dim), bv))
+
+
+def _closest_out(best_t, best_id, best_u, best_v, attrs):
+    """(t, id, u, v, attrs_out) of the kernels from the final running best:
+    a miss keeps t = BIG and gets id 0 and zero attributes."""
+    B0 = best_t.shape[0]
     hit = best_t < BIG
     tid = torch.where(hit, best_id, 0)
     am = torch.where(hit.reshape(-1, 1), attrs[tid.reshape(-1).long()], 0.0)
@@ -343,6 +371,110 @@ def any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed):
     return occ
 
 
+def _visit_walk(meta, ids, nears, cutoff, o3, d3, packed, tmax=None, excl=None,
+                lanes=LANE // WARPS, results=False):
+    """The visit kernels' walks replayed in torch, group by group of
+    ``lanes`` lanes of a row (32: K4/K5, each warp on its own; 128: K6/K7,
+    the whole row).  A group visits the listed clusters in order while a
+    vote after every visit finds a lane that can still improve (closest:
+    best t >= the next near; occlusion: an open lane with tmax >= it), then
+    sweeps all K clusters in identity order while one reaches the cutoff.
+    ``tmax``/``excl`` None means a closest query.
+
+    Returns (visits (B0, 128 // lanes) int32 clusters each group visited,
+    tests (B0, 128 // lanes) int64, state).  ``tests`` counts each group's
+    (lane, triangle) tests the visits needed: closest every lane against
+    every triangle of a visited block, occlusion each open lane up to and
+    including its first blocker in the visit order.  Groups walk apart, so
+    a row's counts do not depend on the other rows given.  ``state`` is the occlusion (B0, 128) bool, or for a
+    closest query the best t (B0, 128) and, with ``results``, the whole
+    running (t, id, u, v)."""
+    B0 = o3.shape[1]
+    G = LANE // lanes
+    U = B0 * G
+    K, _, M = packed.shape
+    Le = ids.shape[1]
+    dev = o3.device
+    row = torch.arange(U, device=dev) // G
+    trip = meta[:, 0].long()[row]
+    cut = cutoff[:, 0][row, None]
+    o, d = o3.reshape(3, U, lanes), d3.reshape(3, U, lanes)
+    if tmax is None:
+        state = list(_closest_init((U, lanes), dev)[:4 if results else 1])
+
+        def wants(units, bound):
+            return state[0][units] >= bound
+    else:
+        tm, ex = tmax.reshape(U, lanes), excl.reshape(U, lanes)
+        occ = torch.zeros((U, lanes), dtype=torch.bool, device=dev)
+
+        def wants(units, bound):
+            return ~occ[units] & (tm[units] >= bound)
+    visits = torch.zeros(U, dtype=torch.int64, device=dev)
+    pos = torch.zeros(U, dtype=torch.int64, device=dev)
+    sweeping = torch.zeros(U, dtype=torch.bool, device=dev)   # in phase 2
+    live = torch.ones(U, dtype=torch.bool, device=dev)
+    tests = torch.zeros(U, dtype=torch.int64, device=dev)
+    tri = torch.arange(M, device=dev)[None, :, None]
+    per = max(1, _PLAIN_PAIRS // (M * lanes))
+    while True:
+        units = torch.nonzero(live).reshape(-1)
+        if units.numel() == 0:
+            break
+        # Each live group's vote before its next visit: phase 1 while its
+        # list lasts and the vote holds, else phase 2 from cluster 0.
+        p, r, in2 = pos[units], row[units], sweeping[units]
+        near = nears[r, torch.clamp_max(p, Le - 1)][:, None]
+        go1 = ~in2 & (p < trip[units]) & wants(units, near).any(dim=1)
+        p = torch.where(in2 | go1, p, 0)
+        in2 = ~go1
+        go = go1 | (in2 & (p < K) & wants(units, cut[units]).any(dim=1))
+        sweeping[units] = in2
+        live[units] = go
+        units, p, go1, r = units[go], p[go], go1[go], r[go]
+        pos[units] = p + 1
+        visits[units] += 1
+        cids = torch.where(go1, ids[r, torch.clamp_max(p, Le - 1)].long(), p)
+        for base in range(0, units.numel(), per):
+            us = units[base:base + per]
+            blk = packed[cids[base:base + per]]                    # (A, 10, M)
+            cols = tuple(blk[:, c, :, None] for c in range(9))     # (A, M, 1)
+            oid = blk[:, 9].contiguous().view(torch.int32)[:, :, None]
+            ok, t, u, v = _mt_core(tuple(o[a, us][:, None] for a in range(3)),
+                                   tuple(d[a, us][:, None] for a in range(3)),
+                                   cols[0:3], cols[3:6], cols[6:9])  # (A, M, lanes)
+            if tmax is None:
+                tests[us] += M * lanes
+                if results:
+                    merged = _merge_closest(tuple(s[us] for s in state),
+                                            ok, t, u, v, oid, 1)
+                    for s, x in zip(state, merged):
+                        s[us] = x
+                else:
+                    hit_t = torch.where(ok & (t < BIG), t, BIG).amin(dim=1)
+                    state[0][us] = torch.minimum(state[0][us], hit_t)
+            else:
+                blocking = ok & (t < tm[us][:, None]) & (oid != ex[us][:, None])
+                first = torch.where(blocking, tri, M).amin(dim=1)   # (A, lanes)
+                was = occ[us]
+                tests[us] += torch.where(was, 0, torch.clamp_max(first + 1, M)).sum(1)
+                occ[us] = was | (first < M)
+    visits, tests = visits.to(torch.int32).reshape(B0, G), tests.reshape(B0, G)
+    if tmax is not None:
+        return visits, tests, occ.reshape(B0, LANE)
+    return visits, tests, tuple(s.reshape(B0, LANE) for s in state)
+
+
+def visit_counts_plain(meta, ids, nears, cutoff, o3, d3, packed, tmax=None,
+                       excl=None, lanes=LANE // WARPS):
+    """Clusters visited by each group of ``lanes`` lanes under the kernels'
+    exit rule (:func:`_visit_walk`): (B0, 4) int32 per warp as K4/K5 count
+    them (``lanes`` 32), (B0, 1) per row as K6/K7 do (``lanes`` 128).
+    ``tmax``/``excl`` None means the closest query, else occlusion."""
+    return _visit_walk(meta, ids, nears, cutoff, o3, d3, packed, tmax, excl,
+                       lanes)[0]
+
+
 # ---------------------------------------------------------------------------
 # K4-K7: build, bind and launch.
 # ---------------------------------------------------------------------------
@@ -354,11 +486,13 @@ def build() -> tuple:
     returns ``(lib, info)`` as :func:`~chiaroscuro_tpu_torch.ops.
     intersect_cuda.build` does.  A failed build raises."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    launches = {}
-    for route in ("cluster", "resident"):
-        launches[f"closest_{route}_launch"] = [vp] * 8 + [ci] * 4 + [vp] * 7
-        launches[f"any_{route}_launch"] = [vp] * 9 + [ci] * 4 + [vp] * 3
-    return bind("intersect_cluster", launches)
+    closest, occlusion = [vp] * 8 + [ci] * 4 + [vp] * 7, [vp] * 9 + [ci] * 4 + [vp] * 3
+    return bind("intersect_cluster", {
+        "closest_cluster_launch": closest, "any_cluster_launch": occlusion,
+        "closest_resident_launch": closest, "any_resident_launch": occlusion,
+        # Not a launch: K4's dynamic shared memory (bytes) at a given M.
+        "closest_resident_smem_bytes": [ci],
+    })
 
 
 def _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device):
@@ -379,13 +513,24 @@ def _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device):
     return B0, Le
 
 
-def _visits_out(visits, B0, device):
-    """The optional (B0,) int32 per-row visit-count output; kernel only."""
+def _visits_shape(kernel, B0):
+    """The visit-count output: per warp (B0, 4) for K4/K5, per row (B0,)
+    for K6/K7."""
+    return (B0, WARPS) if kernel in ROUTES["resident"] else (B0,)
+
+
+def _cpu_visits(kernel, visits, B0, replay):
+    """Fill a CPU ``visits`` output from the exit rules' replay."""
+    if visits is not None:
+        _check("visits", visits, _visits_shape(kernel, B0), torch.int32, visits.device)
+        lanes = LANE // WARPS if kernel in ROUTES["resident"] else LANE
+        visits.copy_(replay(lanes).reshape(visits.shape))
+
+
+def _visits_ptr(kernel, visits, B0, device):
     if visits is None:
         return None
-    if device.type == "cpu":
-        raise ValueError("visit counts are written by the kernels only")
-    _check("visits", visits, (B0,), torch.int32, device)
+    _check("visits", visits, _visits_shape(kernel, B0), torch.int32, device)
     return visits.data_ptr()
 
 
@@ -405,9 +550,11 @@ def _closest_visit(kernel, meta, ids, nears, cutoff, o3, d3, packed, attrs,
     device = _launch_device(o3, d3, packed, attrs)
     B0, Le = _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device)
     _check("attrs", attrs, (attrs.shape[0], ATTR_K), torch.float32, device)
-    visits_ptr = _visits_out(visits, B0, device)
     if device.type == "cpu":
+        _cpu_visits(kernel, visits, B0, lambda lanes: visit_counts_plain(
+            meta, ids, nears, cutoff, o3, d3, packed, lanes=lanes))
         return closest_cluster_plain(meta, ids, nears, cutoff, o3, d3, packed, attrs)
+    visits_ptr = _visits_ptr(kernel, visits, B0, device)
     if packed.data_ptr() % 16 or attrs.data_ptr() % 16:
         raise ValueError("packed and attrs must be 16-byte aligned")
     lib, _ = build()
@@ -423,8 +570,9 @@ def _closest_visit(kernel, meta, ids, nears, cutoff, o3, d3, packed, attrs,
         err = launch(
             meta.data_ptr(), ids.data_ptr(), nears.data_ptr(),
             cutoff.data_ptr(), o3.data_ptr(), d3.data_ptr(), packed.data_ptr(),
-            attrs.data_ptr(), B0, Le, K, M, t.data_ptr(), tid.data_ptr(),
-            u.data_ptr(), v.data_ptr(), am.data_ptr(), visits_ptr, stream,
+            attrs.data_ptr(), B0, Le, K, M, t.data_ptr(),
+            tid.data_ptr(), u.data_ptr(), v.data_ptr(), am.data_ptr(), visits_ptr,
+            stream,
         )
     check_launch(lib, err, kernel)
     LAUNCHES[kernel] += 1
@@ -439,9 +587,11 @@ def _any_visit(kernel, meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
     B0, Le = _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device)
     _check("tmax", tmax, (B0, LANE), torch.float32, device)
     _check("excl", excl, (B0, LANE), torch.int32, device)
-    visits_ptr = _visits_out(visits, B0, device)
     if device.type == "cpu":
+        _cpu_visits(kernel, visits, B0, lambda lanes: visit_counts_plain(
+            meta, ids, nears, cutoff, o3, d3, packed, tmax, excl, lanes=lanes))
         return any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed)
+    visits_ptr = _visits_ptr(kernel, visits, B0, device)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned")
     lib, _ = build()
@@ -453,8 +603,8 @@ def _any_visit(kernel, meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
         err = launch(
             meta.data_ptr(), ids.data_ptr(), nears.data_ptr(),
             cutoff.data_ptr(), o3.data_ptr(), d3.data_ptr(), tmax.data_ptr(),
-            excl.data_ptr(), packed.data_ptr(), B0, Le, K, M, occ.data_ptr(),
-            visits_ptr, stream,
+            excl.data_ptr(), packed.data_ptr(), B0, Le, K, M,
+            occ.data_ptr(), visits_ptr, stream,
         )
     check_launch(lib, err, kernel)
     LAUNCHES[kernel] += 1
@@ -464,22 +614,25 @@ def _any_visit(kernel, meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
 def closest_resident(meta, ids, nears, cutoff, o3, d3, packed, attrs,
                      visits=None):
     """K4: closest hit of each planar ray over the row's listed clusters,
-    each visited block read straight from global memory (L2).
+    each of the row's four warps walking the list on its own and
+    bulk-copying each visited block into its ring in shared memory.
 
     meta/ids/nears/cutoff: the cull's lists (:func:`cull`); o3, d3:
     (3, B0, 128) f32; packed: (K, 10, M) f32 (:func:`derive_buffers`);
-    attrs: (T, ATTR_K) f32 original-order table; visits: None or a (B0,)
-    int32 tensor that receives each row's cluster visit count (kernel
-    only).  Returns (t, id, u, v, attrs_out) as K1 does; a miss keeps
-    t = BIG, id 0.  Takes no gradient: see :func:`closest_cluster_diff`."""
+    attrs: (T, ATTR_K) f32 original-order table; visits: None or a
+    (B0, 4) int32 tensor that receives each warp's cluster visit count (on
+    the CPU from :func:`visit_counts_plain`).  Returns (t, id, u, v,
+    attrs_out) as K1 does; a miss keeps t = BIG, id 0.  Takes no gradient:
+    see :func:`closest_cluster_diff`."""
     return _closest_visit("closest_resident", meta, ids, nears, cutoff, o3,
                           d3, packed, attrs, visits)
 
 
 def closest_cluster(meta, ids, nears, cutoff, o3, d3, packed, attrs,
                     visits=None):
-    """K6: :func:`closest_resident`'s function with each visited block
-    staged through shared memory (``cp.async`` double buffer)."""
+    """K6: :func:`closest_resident`'s function, the row's block walking the
+    list together, each visited block staged through shared memory
+    (``cp.async`` double buffer); ``visits`` is (B0,), one count a row."""
     return _closest_visit("closest_cluster", meta, ids, nears, cutoff, o3,
                           d3, packed, attrs, visits)
 
@@ -487,8 +640,9 @@ def closest_cluster(meta, ids, nears, cutoff, o3, d3, packed, attrs,
 def any_resident(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
                  visits=None):
     """K5: occlusion of each planar ray by a triangle of the row's listed
-    clusters with id != excl at t < tmax, blocks read straight from global
-    memory.  tmax: (B0, 128) f32; excl: (B0, 128) int32; visits as in
+    clusters with id != excl at t < tmax, each warp walking on its own and
+    reading each visited block in place.
+    tmax: (B0, 128) f32; excl: (B0, 128) int32; visits as in
     :func:`closest_resident`.  Returns (B0, 128) bool; the inputs are taken
     detached."""
     return _any_visit("any_resident", meta, ids, nears, cutoff, o3, d3,
@@ -497,8 +651,9 @@ def any_resident(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
 
 def any_cluster(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
                 visits=None):
-    """K7: :func:`any_resident`'s function with each visited block staged
-    through shared memory."""
+    """K7: :func:`any_resident`'s function with the row walking together
+    and each visited block staged through shared memory; ``visits`` as in
+    :func:`closest_cluster`."""
     return _any_visit("any_cluster", meta, ids, nears, cutoff, o3, d3, tmax,
                       excl, packed, visits)
 

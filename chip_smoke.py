@@ -32,10 +32,15 @@ raises, exits non-zero and prints no result line.
    261,396 triangles, K = 2,043, resident by the JAX rule): the same four
    wavefronts of its 1280x720 frame.  K3 exact on every row; K4/K5 bitwise
    equal to the plain versions on a seeded row sample plus every overflow
-   row, and bitwise equal to K6/K7 on every row; per-row visit counts.  The
-   same checks (every row) on atrium(2_200, seed=5) at M = 32 with 32-wide
-   lists, most of whose rows overflow.  X1 as in 2b on every row of the NEE
-   shadow wavefront (with its tmax).
+   row, and bitwise equal to K6/K7 on every row.  The same checks (every row) on
+   atrium(2_200, seed=5) at M = 32 with 32-wide lists, most of whose rows
+   overflow, with every kernel's visit counts equal to the torch replay of
+   its exit rule (``cluster_cuda._visit_walk``: per warp for K4/K5, per
+   row for K6/K7).  Then the 19k frame's (``synthetic:atrium:19000``,
+   K = 148) primary and shadow wavefronts at 1024x1024 in pixel order, as
+   the integrator traces them there: K3 exact, the kernels bitwise on the
+   sample and against each other on every row.  X1 as in 2b on every row
+   of the 262k NEE shadow wavefront (with its tmax).
 3. Cornell render: the CLI's batch render of ``scenes/cornell.rtc`` at its
    768x768 and k 6, at RENDER_SPP samples, into an EXR in a temporary
    directory that is read back; finite, non-trivial, one K1 and one K2
@@ -61,10 +66,14 @@ raises, exits non-zero and prints no result line.
    compaction), each with a torch.profiler breakdown of one warm frame.
 4. Timings (CUDA events, with the card's name and power limit): every
    kernel vs its plain version in us per launch, K4/K5 beside K6/K7 on the
-   same lists with visits per launch, and each kernel's bound on the rows
-   it was timed on (K4-K7: the 256-row sample and every row); K3's sweep
-   and whole cull on every wavefront, each with its bound, beside the
-   Triton K3's times where they were taken (TRITON_K3_US).
+   same lists and beside the row-vote K4/K5 they replaced (ROW_VOTE_US), with visits per
+   warp (K4/K5) or row (K6/K7), each held equal to the replay of its exit
+   rule, and the bounds of the tests each rule needs, per row and per warp
+   (the 256-row sample and, where K4/K5 run, every row; one replay of each
+   rule a wavefront, on every row there), K5's lane-test share; K3's sweep
+   and whole cull on
+   every wavefront, each with its bound, beside the Triton K3's times where
+   they were taken (TRITON_K3_US).
 5. Gradients (``render_samples`` + ``backward``, the intersectors rebuilt on
    the parameter-substituted scene): (i) the card's value and gradients of
    the mean image w.r.t. kd, ke (and tri_v0 on Cornell, tex_data on the
@@ -92,7 +101,8 @@ each run and read after it, summed over the runs; X1/X2: phase 6), its
 largest |kernel - plain|, its time (X2 and its library call: kernel time by
 torch.profiler) and its plain version's on the stated inputs, and the
 bound: the larger of the FP32 operations those inputs need (visits counted
-per row; occlusion lanes tested only up to their first blocker) over the
+by the replay of the per-warp exit rule; occlusion lanes tested only up to
+their first blocker) over the
 card's unfused FP32 rate and the bytes read and written once over its
 memory rate.
 The last line is ``{"ok": true, "device": {...}}``.
@@ -121,9 +131,9 @@ ATRIUM_K = 3
 MID_TRIS = 262_144         # synthetic:atrium:262144, resident by the JAX rule
 NANO_TRIS = 19_000         # synthetic:atrium:19000, the nanosuit scale
 ROW_SAMPLE = 256           # seeded rows for the plain visit comparisons
-VISIT_ROWS = 512           # rows per step of the occlusion bound's replay
 SMALL_LMAX = 32            # lists short enough that most atrium(2_200) rows overflow
 PIXEL_ORDER_LMAX = 512     # list width for the pixel-order bounce block
+NANO_RES = (1024, 1024)    # the 19k frame, bench.py's nanosuit shape
 
 # Bounds (H100 SXM peak rates).  With
 # -fmad=false every add and multiply is its own instruction, so the FP32
@@ -151,6 +161,17 @@ CULL_CHUNK = 64
 TRITON_K3_US = {("atrium 481k", "primary"): (10027.9, 11397.2),
                 ("atrium:262144", "primary"): (None, 7566.4),
                 ("atrium:262144", "shadow"): (6845.6, 7787.0)}
+
+# us of the row-vote K4/K5 that the warp-owned walks replaced (blocks read
+# in place, a row-wide exit vote every 8 visits) on the same seeded
+# wavefronts, (256-row sample, all rows), NVIDIA H100 80GB HBM3 at
+# 700.00 W, by this script; the 19k wavefronts were not timed then.
+ROW_VOTE_US = {
+    ("closest_resident", "atrium:262144", "primary"): (2869.6, 15639.8),
+    ("closest_resident", "atrium:262144", "bounce"): (12740.2, 69220.3),
+    ("closest_resident", "atrium:262144", "bounce in pixel order"): (79642.5, 79633.7),
+    ("any_resident", "atrium:262144", "shadow"): (4290.4, 21488.6),
+}
 
 KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
               "closest_resident": "K4", "any_resident": "K5",
@@ -362,15 +383,18 @@ def cam_tokens(cam):
 # ---------------------------------------------------------------------------
 
 
-def atrium_wavefronts(scene, xres, yres, dev):
+def atrium_wavefronts(scene, xres, yres, dev, sorted_=True):
     """The frame's primary wavefront in pixel order, the first bounce from
     its hits (cosine-sampled with the port's samplers, sorted by the
     integrator's spatial key as the cluster path sorts it, dead lanes
     parked; and a block of ROW_SAMPLE rows of it in pixel order) and the NEE
     shadow wavefront from the same hits (sorted by light and cell as
-    ``_sorted_any`` sorts it).  Returns {name: (o3, d3,
-    tmax or None, excl or None)}, the primary hit share and the primary
-    closest-hit distances (B0, 128) (BIG where a ray missed)."""
+    ``_sorted_any`` sorts it).  With ``sorted_=False`` (a scene below
+    COMPACT_MIN_K clusters, which the integrator neither compacts nor
+    sorts) the primary and the shadow wavefront, both in pixel order.
+    Returns {name: (o3, d3, tmax or None, excl or None)}, the primary hit
+    share and the primary closest-hit distances (B0, 128) (BIG where a ray
+    missed)."""
     from chiaroscuro_tpu_torch.geometry import planar as P
     from chiaroscuro_tpu_torch.geometry.camera import camera_basis, primary_ray_dirs_planar
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
@@ -431,6 +455,12 @@ def atrium_wavefronts(scene, xres, yres, dev):
     def planar(x):
         return x.reshape((3,) + B).contiguous()
 
+    if not sorted_:
+        waves = {"primary": (o3, d3, None, None),
+                 "shadow": (origin.contiguous(), sdir.contiguous(), dist.contiguous(),
+                            scene.light_ids[li].to(torch.int32).contiguous())}
+        return waves, float(hit.float().mean()), res.t.contiguous()
+
     # A block of rows of the bounce wavefront in pixel order, as a render
     # without compaction traces it: its rows mix directions and hit ~800 of
     # the atrium's boxes, so with 512-wide lists (a width the JAX package's
@@ -453,27 +483,27 @@ def take_rows(x, rows):
 
 
 def visit_kernels(cc, routes, closest):
-    """The visit kernels' names for the routes, closest or any."""
+    """The routes' visit kernels, closest or occlusion: K4 or K5 for
+    ``resident``, K6 or K7 for ``stream``."""
     return [cc.ROUTES[r][0 if closest else 1] for r in routes]
 
 
 def run_visit(cc, kernel, lists, o3, d3, tmax, excl, packed, attrs, visits=None):
-    fn = getattr(cc, kernel)
     if tmax is None:
-        return fn(*lists, o3, d3, packed, attrs, visits=visits)
-    return fn(*lists, o3, d3, tmax, excl, packed, visits=visits)
+        return cc._closest_visit(kernel, *lists, o3, d3, packed, attrs, visits)
+    return cc._any_visit(kernel, *lists, o3, d3, tmax, excl, packed, visits)
 
 
 def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_rows,
                     routes):
     """K3 exact on every row (its sweep's hit mask and counts equal, keys
     bitwise and never -0.0; the lists, nears and cutoff bitwise); each
-    route's visit kernels (K4/K5 resident,
-    K6/K7 stream) bitwise equal to the plain versions on a row sample (every
-    row when ``all_rows``; else ROW_SAMPLE seeded rows plus every overflow
-    row), and with both routes K4 vs K6 and K5 vs K7 bitwise on every row.
-    Returns the largest |kernel - plain| per kernel, the compared inputs for
-    the timings, and the number of overflow rows compared."""
+    route's visit kernels (K4/K5 resident, K6/K7 stream) bitwise equal to
+    the plain versions on a row sample (every row when ``all_rows``; else
+    ROW_SAMPLE seeded rows plus every overflow row), and every kernel
+    bitwise equal to the first on every row.  Returns the largest
+    |kernel - plain| per kernel, the compared inputs for the timings, and
+    the number of overflow rows compared."""
     errs = {"cull": 0.0, **{k: 0.0 for r in routes for k in cc.ROUTES[r]}}
     inputs = {}
     n_overflow_sampled = 0
@@ -515,27 +545,28 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
             fields = ("occluded",)
         sync()
         bad = []
-        for k, got in outs.items():
-            got = got if closest else (got,)
+        first = kernels[0]
+        for k in kernels:
+            got = outs[k] if closest else (outs[k],)
             for f, a, b in zip(fields, got, want):
                 a = take_rows(a, rows)
                 if not torch.equal(bits(a), bits(b)):
                     bad.append(f"{KERNEL_IDS[k]} {f} vs plain")
                 errs[k] = max(errs[k], max_err(a.float(), b.float()))
-        if len(kernels) == 2:
-            a_out, b_out = (o if closest else (o,) for o in outs.values())
-            for f, a, b in zip(fields, a_out, b_out):
-                if not torch.equal(bits(a), bits(b)):
-                    bad.append(f"{f}: {KERNEL_IDS[kernels[0]]} vs {KERNEL_IDS[kernels[1]]}")
-        first = outs[kernels[0]]
-        share = float((first[0] < cc.BIG).float().mean()) if closest else float(first.float().mean())
+            if k != first:
+                ref = outs[first] if closest else (outs[first],)
+                for f, a, b in zip(fields, got, ref):
+                    if not torch.equal(bits(a), bits(b)):
+                        bad.append(f"{f}: {KERNEL_IDS[k]} vs {KERNEL_IDS[first]}")
+        out0 = outs[first]
+        share = float((out0[0] < cc.BIG).float().mean()) if closest else float(out0.float().mean())
         trip = meta[:, 0].float()
-        vs = (f"; {KERNEL_IDS[kernels[0]]} vs {KERNEL_IDS[kernels[1]]} on all {nB0} rows"
-              if len(kernels) == 2 else "")
+        ids = "/".join(KERNEL_IDS[k] for k in kernels)
+        vs = (f"; {ids} against each other on all {nB0} rows" if len(kernels) > 1 else "")
         print(f"[cluster] {name}/{wname}: B0={nB0} Le={wle} K3 hit (row, box) pairs "
               f"{int(sweep[0].sum())}, {zero_boxes} of them at entry +0.0; trip p50={float(trip.median())} "
               f"max={int(meta[:, 0].max())} overflow share={float(meta[:, 1].float().mean()):.5f} "
-              f"({overflow.numel()} rows); {'/'.join(KERNEL_IDS[k] for k in kernels)} vs plain on "
+              f"({overflow.numel()} rows); {ids} vs plain on "
               f"{rows.numel()} rows ({int(meta[rows, 1].sum())} overflow){vs}: "
               f"{'hit' if closest else 'occluded'} share {share:.4f}, mismatched={bad or 'none'}")
         if bad:
@@ -547,53 +578,12 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
     return errs, inputs, n_overflow_sampled
 
 
-def open_lane_tests(cc, lists, o3, d3, tmax, excl, packed, visits, occ):
-    """(lane, triangle) tests an occlusion launch needs: each row visits
-    the clusters its ``visits`` count covers (phase 1's listed ones, then
-    phase 2's identity-order sweep; phase 1 ends early only where phase 2
-    makes no visit, since the cutoff is at least every listed near), and
-    each lane tests only up to and including its first blocker in that
-    order (K5/K7 stop there).  The lanes this finds occluded must be
-    ``occ``, the kernel's result, or the visit order is not the kernel's."""
-    meta, ids = lists[0], lists[1]
-    K, M = packed.shape[0], packed.shape[2]
-    Le = ids.shape[1]
-    dev = o3.device
-    n = visits.long()
-    n1 = torch.minimum(n, meta[:, 0].long())
-    if bool((n - n1 > K).any()):
-        raise AssertionError(f"a row visits past the {K}-cluster sweep")
-    done = torch.zeros_like(occ)
-    tests = torch.zeros((), dtype=torch.int64, device=dev)
-    tri = torch.arange(M, device=dev)[None, :, None]
-    # Visit j of every row that makes one, VISIT_ROWS rows at a time.
-    for j in range(int(n.max()) if n.numel() else 0):
-        for rows in torch.nonzero(n > j).reshape(-1).split(VISIT_ROWS):
-            listed = j < n1[rows]
-            cid = torch.where(listed, ids[rows, min(j, Le - 1)].long(), j - n1[rows])
-            blk = packed[cid]                                  # (R, 10, M)
-            cols = tuple(blk[:, c, :, None] for c in range(9))  # (R, M, 1)
-            oid = blk[:, 9].contiguous().view(torch.int32)[:, :, None]
-            o = tuple(o3[a, rows][:, None] for a in range(3))   # (R, 1, 128)
-            d = tuple(d3[a, rows][:, None] for a in range(3))
-            ok, t, _, _ = cc._mt_core(o, d, cols[0:3], cols[3:6], cols[6:9])
-            blocking = ok & (t < tmax[rows][:, None]) & (oid != excl[rows][:, None])
-            first = torch.where(blocking, tri, M).amin(1)     # (R, 128)
-            was = done[rows]
-            tests += torch.where(was, 0, torch.clamp_max(first + 1, M)).sum()
-            done[rows] = was | (first < M)
-    if not torch.equal(done, occ):
-        raise AssertionError("the occlusion bound's visit order does not reproduce the kernel")
-    return int(tests)
-
-
 def visit_bound(lists, o3, tmax, packed, visits, tests, hit_tris):
     """Bound of one visit launch: MT_OPS per (lane, triangle) test these
-    inputs need (closest: every lane over the clusters ``visits`` (per row)
-    counts; occlusion: :func:`open_lane_tests`); bytes: rays, lists up to
-    trip, the distinct cluster blocks (at most the visits), the attribute
-    rows of the ``hit_tris`` distinct hit triangles read once, the outputs
-    written once."""
+    inputs need (the replay's count, :func:`replay_visits`); bytes: rays,
+    lists up to trip, the distinct cluster blocks (at most the visits), the
+    attribute rows of the ``hit_tris`` distinct hit triangles read once, the
+    outputs written once."""
     B0_, M = o3.shape[1], packed.shape[2]
     R = B0_ * 128
     n_vis = int(visits.sum())
@@ -603,18 +593,101 @@ def visit_bound(lists, o3, tmax, packed, visits, tests, hit_tris):
         nbytes += hit_tris * 128 + R * 144
     else:
         nbytes += R * 9
-    return bound(MT_OPS * tests, nbytes)
+    return bound(MT_OPS * int(tests.sum()), nbytes)
+
+
+def replay_visits(cc, lists, o3, d3, tmax, excl, packed, kernel_visits, first_out,
+                  warp=True):
+    """The visit kernels' exit rules replayed in torch on the card
+    (``cluster_cuda._visit_walk``) on the rows given: per warp (K4/K5's
+    rule) and per row (K6/K7's).  A row's walk visits what its slowest warp
+    visits (a warp stops early only when none of its lanes wants a later box
+    of the list or the sweep: the nears ascend and the cutoff is at least
+    every listed near), so a closest query's per-row counts are the per-warp
+    maximum, and its tests every lane against each visited triangle; an
+    occlusion query's per-row tests stop at each lane's first blocker in the
+    row's visit order, which takes a replay of its own.  Every kernel's
+    visit counts must equal the replay of its rule exactly ({kernel: counts};
+    (B0, 4) per warp, (B0,) per row), and the replay's answer the kernels'
+    (``first_out``).  Without ``warp`` (the streaming pair alone) only the
+    per-row rule is replayed, and a closest query's per-row counts are the
+    kernel's own.  Returns {"warp"/"row": (visits, tests)}, each (B0, G) per
+    group of the rule."""
+    out, replays = {}, []
+    if warp:
+        warp_v, warp_t, state = cc._visit_walk(*lists, o3, d3, packed, tmax, excl, lanes=32)
+        replays.append(("warp", state))
+        out["warp"] = (warp_v, warp_t)
+    if tmax is None:
+        row_v = warp_v.amax(1, keepdim=True) if warp else \
+            next(c for c in kernel_visits.values() if c.dim() == 1)[:, None]
+        row_t = row_v.long() * 128 * packed.shape[2]
+    else:
+        row_v, row_t, row_state = cc._visit_walk(*lists, o3, d3, packed, tmax, excl, lanes=128)
+        replays.append(("row", row_state))
+        if warp and not torch.equal(row_v[:, 0], warp_v.amax(1)):
+            raise AssertionError("the per-row replay does not visit what its slowest warp does")
+    out["row"] = (row_v, row_t)
+    for gran, st in replays:
+        same = torch.equal(bits(st[0]), bits(first_out[0])) if tmax is None \
+            else torch.equal(st, first_out)
+        if not same:
+            raise AssertionError(f"the per-{gran} replay does not reproduce the kernels' answer")
+    for k, counts in kernel_visits.items():
+        want = out["warp" if counts.dim() == 2 else "row"][0]
+        if not torch.equal(counts, want.reshape(counts.shape)):
+            raise AssertionError(f"{KERNEL_IDS[k]}: visit counts differ from the replay of its rule")
+    return out
+
+
+def replay_bounds(cc, lists, o3, tmax, packed, replay, first_out, rows=None):
+    """{"row"/"warp": (bound, tests, visits)} of :func:`replay_visits`'s
+    replay on ``rows`` of its rows (all where None)."""
+    if rows is not None:
+        lists = tuple(x[rows] for x in lists)
+        o3 = o3[:, rows]
+        first_out = (first_out[0][rows], first_out[1][rows]) if tmax is None \
+            else first_out[rows]
+    hit_tris = 0
+    if tmax is None:
+        hit_tris = int(torch.unique(first_out[1][first_out[0] < cc.BIG]).numel())
+    out = {}
+    for gran, (v, t) in replay.items():
+        if rows is not None:
+            v, t = v[rows], t[rows]
+        out[gran] = (visit_bound(lists, o3, tmax, packed, v, t, hit_tris), int(t.sum()),
+                     int(v.sum()))
+    return out
+
+
+def check_visits(cc, name, inputs, packed, attrs):
+    """Every row of each wavefront: the visit counts of K4/K5 and K6/K7
+    against the replay of their exit rules."""
+    for wname, (o3, d3, tmax, excl, lists, _) in inputs.items():
+        kernels = visit_kernels(cc, ("resident", "stream"), tmax is None)
+        counts, outs = {}, {}
+        for k in kernels:
+            per = (cc.WARPS,) if k in cc.ROUTES["resident"] else ()
+            counts[k] = torch.zeros((o3.shape[1],) + per, dtype=torch.int32, device=o3.device)
+            outs[k] = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=counts[k])
+        replay_visits(cc, lists, o3, d3, tmax, excl, packed, counts, outs[kernels[0]])
+        print(f"[cluster] {name}/{wname}: visit counts of "
+              f"{'/'.join(KERNEL_IDS[k] for k in kernels)} equal the replay on every row "
+              f"({int(counts[kernels[0]].sum())} warp visits, "
+              f"{int(counts[kernels[-1]].sum())} row visits)")
 
 
 def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
     """For each wavefront: K3's whole cull and its sweep alone on every row
-    (against its plain version) and
-    each route's visit kernel on ROW_SAMPLE seeded rows against the plain
-    version, in turns; the kernels also on every row.  The per-row visit
-    counts of each kernel on the sample and on every row, and the bound of
-    the sample launch from the per-visit early exit's count (K6/K7's: the
-    least the data needs)."""
+    (against its plain version) and each route's visit kernels on ROW_SAMPLE
+    seeded rows against the plain version, in turns; the kernels also on
+    every row.  Each kernel's visit counts on the sample and on every row,
+    and the bounds: where the resident kernels run, per row and per warp of
+    every row and of the sample, from one :func:`replay_visits` on every
+    row (a row's walk does not depend on the other rows); for the streaming
+    pair alone, its own per-row rule's on the sample."""
     timings = {}
+    all_rows = "resident" in routes
     for wname, (o3, d3, tmax, excl, lists, wle) in inputs.items():
         dev = o3.device
         nB0 = o3.shape[1]
@@ -646,40 +719,51 @@ def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
                (lambda: cc.any_cluster_plain(*sub, so3, sd3, stm, sex, packed))}
         for k in kernels:
             fns[k] = (lambda k=k: run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs))
-        reps = {n: (1 if n == "plain" else 10) for n in fns}
-        sample_t = time_turns(fns, reps)
+        sample_t = time_turns(fns, {n: (1 if n == "plain" else 10) for n in fns})
         full_t = time_turns(
             {k: (lambda k=k: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs))
              for k in kernels}, dict.fromkeys(kernels, 10))
         visits = {}
         for k in kernels:
-            vs = torch.zeros(so3.shape[1], dtype=torch.int32, device=dev)
-            va = torch.zeros(nB0, dtype=torch.int32, device=dev)
+            per = (cc.WARPS,) if k in cc.ROUTES["resident"] else ()
+            vs = torch.zeros((so3.shape[1],) + per, dtype=torch.int32, device=dev)
+            va = torch.zeros((nB0,) + per, dtype=torch.int32, device=dev)
             out = run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs, visits=vs)
             out_all = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=va)
+            if not torch.equal(vs, va[pick]):
+                raise AssertionError(f"{KERNEL_IDS[k]} {wname}: the sample's visit counts "
+                                     "differ from those of its rows in the every-row launch")
             visits[k] = (vs, va, out, out_all)
-        least = cc.ROUTES["stream"][0 if closest else 1]
-        least = least if least in visits else kernels[0]
-        l_vs, l_va, l_out, l_out_all = visits[least]
-        bounds = {}
-        for rows, (ls, ro3, rd3, rtm, rex, rv, rout) in {
-                "sample": (sub, so3, sd3, stm, sex, l_vs, l_out),
-                "all": (lists, o3, d3, tmax, excl, l_va, l_out_all)}.items():
-            if closest:
-                tests = 128 * packed.shape[2] * int(rv.sum())
-                hit_tris = int(torch.unique(rout[1][rout[0] < cc.BIG]).numel())
-            else:
-                tests = open_lane_tests(cc, ls, ro3, rd3, rtm, rex, packed, rv, rout)
-                hit_tris = 0
-            bounds[rows] = (visit_bound(ls, ro3, rtm, packed, rv, tests, hit_tris), tests)
+        first = kernels[0]
+        if all_rows:
+            replay = replay_visits(cc, lists, o3, d3, tmax, excl, packed,
+                                   {k: v[1] for k, v in visits.items()}, visits[first][3])
+            bounds = {
+                "sample": replay_bounds(cc, lists, o3, tmax, packed, replay, visits[first][3],
+                                        pick),
+                "all": replay_bounds(cc, lists, o3, tmax, packed, replay, visits[first][3]),
+            }
+        else:
+            replay = replay_visits(cc, sub, so3, sd3, stm, sex, packed,
+                                   {k: v[0] for k, v in visits.items()}, visits[first][2],
+                                   warp=False)
+            bounds = {"sample": replay_bounds(cc, sub, so3, stm, packed, replay,
+                                              visits[first][2])}
+        M = packed.shape[2]
+        # The finest rule replayed, on the most rows: (name, lanes a group).
+        gran, lanes = ("warp", 32) if all_rows else ("row", 128)
+        widest = bounds.get("all", bounds["sample"])[gran]
         for k in kernels:
             vs, va, _, _ = visits[k]
             timings[(k, wname)] = dict(
                 us=sample_t[k][0], turns=sample_t[k][1], plain_us=sample_t["plain"][0],
-                plain_turns=sample_t["plain"][1], full_us=full_t[k][0], full_turns=full_t[k][1],
-                visits_sample=int(vs.sum()), visits_all=int(va.sum()),
-                bound=bounds["sample"][0], tests_sample=bounds["sample"][1],
-                bound_all=bounds["all"][0], tests_all=bounds["all"][1], rows=nB0)
+                plain_turns=sample_t["plain"][1], full_us=full_t[k][0],
+                full_turns=full_t[k][1], visits_sample=int(vs.sum()),
+                visits_all=int(va.sum()), per_warp=vs.dim() == 2,
+                bounds={(rows, g): b for rows, by in bounds.items() for g, b in by.items()},
+                bound=bounds["sample"][gran][0], rows=nB0, gran=gran,
+                # Tests the finest bound needs over those its groups ran.
+                test_share=widest[1] / (lanes * M * widest[2]))
         timings[("rows", wname)] = (nB0, wle, float(lists[0][:, 0].float().median()),
                                     float(sub[0][:, 0].float().median()))
     return timings
@@ -744,36 +828,60 @@ def print_x1_timings(card, what, x):
 
 
 def print_cluster_timings(card, scene_name, ctimings):
-    for (kern, wname), val in ctimings.items():
-        if kern == "rows":
+    for (label, wname), val in ctimings.items():
+        if label == "rows":
             print(f"[timing] {card}: {scene_name} {wname}: B0={val[0]} Le={val[1]}, trip p50 "
                   f"{val[2]} on all rows, {val[3]} on the timed sample")
             continue
-        kid = KERNEL_IDS[kern]
         b_ms, b_by = val["bound"]
-        if kern == "cull":
+        if label == "cull":
             s_ms, s_by = val["sweep_bound"]
             tri = TRITON_K3_US.get((scene_name, wname))
             tri = "" if tri is None else "; the Triton K3 it replaced: sweep {}, cull {} us".format(
                 *("not timed" if x is None else x for x in tri))
-            print(f"[timing] {card}: {kid} {scene_name} {wname} B0={val['rows']}: sweep "
+            print(f"[timing] {card}: K3 {scene_name} {wname} B0={val['rows']}: sweep "
                   f"{val['sweep_us']:.1f} us (turns {val['sweep_turns'][0]:.1f}, "
                   f"{val['sweep_turns'][1]:.1f}), bound {s_ms * 1e3:.1f} us ({s_by}); whole cull "
                   f"{val['us']:.1f} us (turns {val['turns'][0]:.1f}, {val['turns'][1]:.1f}), "
                   f"bound {b_ms * 1e3:.1f} us ({b_by}); plain {val['plain_us']:.1f} us (turns "
                   f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}){tri}")
-        else:
-            a_ms, a_by = val["bound_all"]
-            print(f"[timing] {card}: {kid} {kern} {scene_name} {wname}, sample of {ROW_SAMPLE} "
-                  f"rows: kernel {val['us']:.1f} us (turns {val['turns'][0]:.1f}, "
-                  f"{val['turns'][1]:.1f}), plain {val['plain_us']:.1f} us (turns "
-                  f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}), "
-                  f"{val['visits_sample']} visits, bound {b_ms * 1e3:.1f} us ({b_by}, "
-                  f"{val['tests_sample']} lane-triangle tests needed); all "
-                  f"{val['rows']} rows: {val['full_us']:.1f} us (turns {val['full_turns'][0]:.1f}, "
-                  f"{val['full_turns'][1]:.1f}), {val['visits_all']} visits "
-                  f"({val['visits_all'] / val['rows']:.1f} per row), bound {a_ms * 1e3:.1f} us "
-                  f"({a_by}, {val['tests_all']} lane-triangle tests needed)")
+            continue
+        bd = val["bounds"]
+
+        def bounds_text(rows):
+            if (rows, "row") not in bd:
+                return "not replayed on every row"
+            return ", ".join(
+                f"per {g} {bd[(rows, g)][0][0] * 1e3:.1f} us ({bd[(rows, g)][0][1]}, "
+                f"{bd[(rows, g)][1]} lane-triangle tests)" for g in ("row", "warp")
+                if (rows, g) in bd)
+
+        unit = "warp" if val["per_warp"] else "row"
+        n_units = val["rows"] * (4 if val["per_warp"] else 1)
+        old = ROW_VOTE_US.get((label, scene_name, wname))
+        old = "" if old is None else f"; the row-vote design: {old[0]} us on its sample, {old[1]} on all"
+        g = val["gran"]
+        share = "" if label.startswith("closest") else \
+            (f"; lane-test share {val['test_share']:.4f} (per-{g} bound's tests / "
+             f"{32 if g == 'warp' else 128} x M x {g} visits)")
+        print(f"[timing] {card}: {KERNEL_IDS[label]} {label} {scene_name} {wname}, "
+              f"sample of {ROW_SAMPLE} "
+              f"rows: kernel {val['us']:.1f} us (turns {val['turns'][0]:.1f}, "
+              f"{val['turns'][1]:.1f}), plain {val['plain_us']:.1f} us (turns "
+              f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}), "
+              f"{val['visits_sample']} {unit} visits, bounds {bounds_text('sample')}; all "
+              f"{val['rows']} rows: {val['full_us']:.1f} us (turns {val['full_turns'][0]:.1f}, "
+              f"{val['full_turns'][1]:.1f}), {val['visits_all']} {unit} visits "
+              f"({val['visits_all'] / n_units:.2f} per {unit}), bounds {bounds_text('all')}"
+              f"{old}{share}")
+    # The resident kernels against the streaming ones on the same lists.
+    for (label, wname), val in ctimings.items():
+        stream = "closest_cluster" if label.startswith("closest") else "any_cluster"
+        other = ctimings.get((stream, wname))
+        if label in ("closest_resident", "any_resident") and other is not None:
+            print(f"[timing] {card}: {scene_name} {wname} all rows: {KERNEL_IDS[label]} / "
+                  f"{KERNEL_IDS[stream]} {val['full_us'] / other['full_us']:.3f} "
+                  f"(sample {val['us'] / other['us']:.3f})")
 
 
 def cli_render(cli, repo, counts, tokens, out_name):
@@ -863,13 +971,13 @@ def profile(fn, label, card):
         n_kernels += e.count
         if "cull_rows_kernel" in name:
             layer = "K3 cull_rows"
-        elif "closest_cluster_kernel<false>" in name:
+        elif "closest_resident_kernel" in name:
             layer = "K4 closest_resident"
-        elif "any_cluster_kernel<false>" in name:
+        elif "any_resident_kernel" in name:
             layer = "K5 any_resident"
-        elif "closest_cluster_kernel<true>" in name:
+        elif "closest_cluster_kernel" in name:
             layer = "K6 closest_cluster"
-        elif "any_cluster_kernel<true>" in name:
+        elif "any_cluster_kernel" in name:
             layer = "K7 any_cluster"
         elif "closest_dense_kernel" in name:
             layer = "K1 closest_dense"
@@ -898,11 +1006,11 @@ def profile(fn, label, card):
         print(f"[profile]   {layer}: {us / 1e3:.2f} ms ({100 * us / 1e3 / busy:.1f}% of busy){extra}")
 
 
-def sass_mix(path, kernel, per):
+def sass_mix(path, kernel, per, what="box"):
     """Print the opcode counts of each compiled variant of ``kernel`` in the
-    library at ``path`` (``cuobjdump -sass``), and each count / ``per``: the
-    kernel's loop over a chunk of ``per`` boxes is fully unrolled, so that
-    is the count per box (the code outside the loop adds a few)."""
+    library at ``path`` (``cuobjdump -sass``), and each count / ``per``: for
+    K3 the kernel's loop over a chunk of ``per`` boxes is fully unrolled, so
+    that is the count per box (the code outside the loop adds a few)."""
     from chiaroscuro_tpu_torch.ops.cuda_build import nvcc
 
     tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
@@ -924,9 +1032,10 @@ def sass_mix(path, kernel, per):
         if kernel not in name:
             continue
         keys = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "SEL", "FSEL", "LOP3", "ISETP",
-                "REDUX", "LDS", "STS", "BAR")
+                "REDUX", "VOTE", "LDS", "LDG", "LD", "STS", "BAR", "SYNCS", "UBLKCP", "CCTL")
         parts = ", ".join(f"{k} {mix.get(k, 0)} ({mix.get(k, 0) / per:.2f})" for k in keys)
-        print(f"[build] sass {name}: {sum(mix.values())} instructions; per box of {per}: {parts}")
+        print(f"[build] sass {name}: {sum(mix.values())} instructions; per {what} of {per}: "
+              f"{parts}")
 
 
 def device_us(fn, reps, name=None):
@@ -953,8 +1062,8 @@ def profile_frame(renderer, card):
     """:func:`profile` over one warm frame of a CLI renderer."""
     cfg = renderer.cfg
     profile(lambda: renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview),
-            f"{cfg.obj_path} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}, one warm frame",
-            card)
+            f"{cfg.obj_path} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}, one warm "
+            "frame", card)
 
 
 # ---------------------------------------------------------------------------
@@ -1046,6 +1155,14 @@ def main() -> int:
         for k, n in launches.items():
             main_launches[k] += n
 
+    lap_t = [t_start]
+
+    def lap(phase):
+        """Print the seconds since the last lap: where the smoke's time goes."""
+        now = time.perf_counter()
+        print(f"[smoke] {phase}: {now - lap_t[0]:.1f} s")
+        lap_t[0] = now
+
     # --- phase 1: device and build ------------------------------------------
     print(f"[device] nvidia-smi: {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
@@ -1060,7 +1177,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
     sass_mix(cc.build_cull()[1]["path"], "cull_rows_kernel", CULL_CHUNK)
+    # The resident visits at M = 128: the visit is inlined twice (phase 1
+    # and phase 2), each an unrolled loop body of 8 triangles (two
+    # 4-triangle loads), so counts / 16 approximate the instructions a
+    # triangle (the walk adds a few).
+    sass_mix(cc.build()[1]["path"], "ILi128E", 16, "triangle (2 inlined visits x 8)")
+    print(f"[build] K4 at M = 128: {cc.build()[0].closest_resident_smem_bytes(128)} B of "
+          "dynamic shared memory a block (its warps' rings and mbarriers); K5 none")
 
+    lap("phase 1")
     # --- phase 2: dense kernels vs plain ---------------------------------------
     rng = np.random.default_rng(20261016)
     cornell = build_scene_tensors(cornell_box(), device=dev)
@@ -1080,6 +1205,7 @@ def main() -> int:
     print("[kernels] K1/K2 equal their plain versions bitwise")
     sync()
 
+    lap("phase 2")
     # --- phase 2b: streaming cluster kernels vs plain (481k) -------------------
     t0 = time.perf_counter()
     big = build_scene_tensors(atrium(480_000), device=dev)
@@ -1105,8 +1231,10 @@ def main() -> int:
         big_errs, big_inputs, n_over = compare_cluster(
             cc, "atrium 1280x720", waves, bmin, bmax, Le, packed, attrs, rng, all_rows=False,
             routes=("stream",))
+        lap("phase 2b, scene and checks")
         ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng,
                                 routes=("stream",))
+        lap("phase 2b, timings")
         k3_waves(cc, card, *(torch.cat([waves["primary"][i], waves["bounce"][i]], 1)
                              for i in (0, 1)), bmin, bmax)
         boxes = torch.from_numpy(xc.pack_cull_boxes(ca.bbox_min, ca.bbox_max)).to(dev)
@@ -1124,6 +1252,7 @@ def main() -> int:
     print("[cluster] K3 exact, K6/K7 bitwise against their plain versions; X1 exact against "
           "its plain version and K3's hit mask")
 
+    lap("phase 2b, K3 by waves and X1")
     # --- phase 2c: resident cluster kernels (262k) -----------------------------
     t0 = time.perf_counter()
     mid = build_scene_tensors(atrium(MID_TRIS), device=dev)
@@ -1155,25 +1284,48 @@ def main() -> int:
         sca = build_clusters(*(x.cpu().numpy() for x in (small.tri_v0, small.tri_v1, small.tri_v2)), 32)
         s_packed, s_attrs2 = cc.derive_buffers(small, sca)
         s_waves, _, _ = atrium_wavefronts(small, 160, 96, dev)
-        small_errs, _, s_over = compare_cluster(
+        small_errs, s_inputs, s_over = compare_cluster(
             cc, "atrium(2_200) M=32", s_waves, torch.from_numpy(sca.bbox_min).to(dev),
             torch.from_numpy(sca.bbox_max).to(dev), SMALL_LMAX, s_packed, s_attrs2, rng,
             all_rows=True, routes=("resident", "stream"))
+        check_visits(cc, "atrium(2_200) M=32", s_inputs, s_packed, s_attrs2)
+        lap("phase 2c, 262k scene and checks, atrium(2_200)")
         mtimings = time_cluster(cc, mid_inputs, m_bmin, m_bmax, m_packed, m_attrs, rng,
                                 routes=("resident", "stream"))
+        lap("phase 2c, 262k timings")
+        # The 19k frame's wavefronts in pixel order, as the integrator
+        # traces them there (K = 148 < COMPACT_MIN_K: no compaction, no sort).
+        nano = build_scene_tensors(atrium(NANO_TRIS), device=dev)
+        nca = build_clusters(*(x.cpu().numpy() for x in (nano.tri_v0, nano.tri_v1, nano.tri_v2)))
+        n_packed, n_attrs = cc.derive_buffers(nano, nca)
+        n_bmin = torch.from_numpy(nca.bbox_min).to(dev)
+        n_bmax = torch.from_numpy(nca.bbox_max).to(dev)
+        if nca.K != 148 or nca.K >= cc.COMPACT_MIN_K:
+            raise AssertionError(f"atrium:{NANO_TRIS} has K={nca.K}, not 148")
+        n_waves, _, _ = atrium_wavefronts(nano, *NANO_RES, dev, sorted_=False)
+        nano_errs, nano_inputs, _ = compare_cluster(
+            cc, f"atrium:{NANO_TRIS} 1024x1024", n_waves, n_bmin, n_bmax,
+            min(cc.DEFAULT_LMAX, nca.K), n_packed, n_attrs, rng, all_rows=False,
+            routes=("resident", "stream"))
+        ntimings = time_cluster(cc, nano_inputs, n_bmin, n_bmax, n_packed, n_attrs, rng,
+                                routes=("resident", "stream"))
+        lap("phase 2c, 19k checks and timings")
         x1_times["262k shadow"] = compare_x1(
             xc, cc, f"atrium:{MID_TRIS} shadow", *m_waves["shadow"][:3], m_bmin,
             m_bmax, torch.from_numpy(xc.pack_cull_boxes(mca.bbox_min, mca.bbox_max)).to(dev))
     if n_over == 0 or s_over == 0:
         raise AssertionError("no overflow row was compared: phase 2 of K4/K5 went unchecked")
-    cluster_errs = {k: max(big_errs.get(k, 0.0), mid_errs.get(k, 0.0), small_errs.get(k, 0.0))
+    cluster_errs = {k: max(e.get(k, 0.0) for e in (big_errs, mid_errs, small_errs, nano_errs))
                     for k in ("cull", *cc.ROUTES["resident"], *cc.ROUTES["stream"])}
     # The renders and phase 5 build their own scenes: hold nothing of this
     # phase's on the card while their peak memory is read.
     del mid, m_packed, m_attrs, m_waves, mid_inputs, small, s_packed, s_attrs2, s_waves
+    del s_inputs, nano, n_packed, n_attrs, n_waves, nano_inputs
     torch.cuda.empty_cache()
-    print("[cluster] K3 exact, K4/K5 bitwise against their plain versions and against K6/K7")
+    print("[cluster] K3 exact, K4/K5 bitwise against their plain versions and against "
+          "K6/K7, visit counts equal to the replay of their exit rules")
 
+    lap("phase 2c, X1")
     # --- phase 3: Cornell render -------------------------------------------------
     renderer, launches, _, mem, exported = cli_render(
         cli, repo, counts, ["samples", str(RENDER_SPP)], "cornell_768.exr")
@@ -1205,6 +1357,7 @@ def main() -> int:
     sync()
     assert_render_close(imgs["cuda"], imgs["cpu"], "cornell 128x128")
 
+    lap("phase 3")
     # --- phase 3b: 481k atrium render, atrium(2_200) card vs CPU ---------------
     cam = cam_tokens(ATRIUM_CAMERA)
     a_renderer, a_launches, a_total, a_mem, a_exported = cli_render(
@@ -1256,6 +1409,7 @@ def main() -> int:
         assert_render_close(s_imgs["cuda"], s_imgs["cpu"],
                             f"atrium(2_200) 160x90 route {route}", flipped_mean_rel=1e-3)
 
+    lap("phase 3b")
     # --- phase 3c: mid-size renders through auto ---------------------------------
     m_renderer, m_launches, m_total, m_mem, m_exported = cli_render(
         cli, repo, counts,
@@ -1288,6 +1442,7 @@ def main() -> int:
     del n_renderer, n_exported
     torch.cuda.empty_cache()
 
+    lap("phase 3c")
     # --- phase 4: timings ---------------------------------------------------------
     timings = {}
     with torch.no_grad():
@@ -1312,6 +1467,7 @@ def main() -> int:
         print(f"[timing] {card}: {kid} bound on the cornell queries {b_ms * 1e3:.1f} us ({b_by})")
     print_cluster_timings(card, "atrium 481k", ctimings)
     print_cluster_timings(card, f"atrium:{MID_TRIS}", mtimings)
+    print_cluster_timings(card, f"atrium:{NANO_TRIS}", ntimings)
     for what, x in x1_times.items():
         print_x1_timings(card, what, x)
     ms_per_sample = st["seconds"] * 1e3 / cfg.samples
@@ -1320,6 +1476,7 @@ def main() -> int:
           f"{st['useful_rays_per_sec'] / 1e6:.1f} useful Mray/s, "
           f"occupancy {st['occupancy']:.3f}; {mem_text(mem)}")
 
+    lap("phase 4")
     # --- phase 5: gradients -------------------------------------------------------
     grad_checks = (
         ("cornell 64x64 x 4 spp x k3 (K1)", lambda d: build_scene_tensors(cornell_box(), device=d),
@@ -1399,6 +1556,7 @@ def main() -> int:
                              lambda s: make_intersectors(s, "dense"), checkpoint=True),
             "cornell 512x512 x 2 spp x k3 fwd+bwd, checkpoint=True", card)
 
+    lap("phase 5")
     # --- phase 6: the tool path (X1 in the cull shootout, X2) -------------------
     t0 = time.perf_counter()
     reset(xc.LAUNCHES, dm.LAUNCHES)
@@ -1443,6 +1601,7 @@ def main() -> int:
           + ", ".join(f"{n} {'not measured' if u is None else f'{u:.2f} us'}"
                       for n, u in x2_dev.items())
           + f"; bound {x2_bound[0] * 1e3:.3f} us ({x2_bound[1]})")
+    lap("phase 6")
     # Launches above for comparison and timing do not count: the counts
     # are the tool phase's.
 

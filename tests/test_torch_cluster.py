@@ -358,9 +358,18 @@ def test_wrapper_checks_inputs(atrium_case):
         cc.closest_cluster(*lists, o3, d3, packed, attrs.clone().requires_grad_())
     with pytest.raises(ValueError, match="closest_cluster_diff"):
         cc.closest_resident(*lists, o3.clone().requires_grad_(), d3, packed, attrs)
-    with pytest.raises(ValueError, match="kernels only"):
+    # On the CPU a visits output is filled from the exit rules' replay: per
+    # warp (B0, 4) for the resident kernels, per row (B0,) for streaming.
+    with pytest.raises(ValueError, match="shape"):
         cc.closest_resident(*lists, o3, d3, packed, attrs,
                             visits=torch.zeros(o3.shape[1], dtype=torch.int32))
+    v4 = torch.zeros((o3.shape[1], cc.WARPS), dtype=torch.int32)
+    v6 = torch.zeros(o3.shape[1], dtype=torch.int32)
+    cc.closest_resident(*lists, o3, d3, packed, attrs, visits=v4)
+    cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=v6)
+    assert torch.equal(v4, cc.visit_counts_plain(*lists, o3, d3, packed))
+    assert torch.equal(v6, cc.visit_counts_plain(*lists, o3, d3, packed, lanes=128)[:, 0])
+    assert bool((v4 > 0).any()) and bool((v4 <= v6[:, None]).all())
 
 
 # ---------------------------------------------------------------------------
@@ -368,10 +377,11 @@ def test_wrapper_checks_inputs(atrium_case):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=[4, None])
+@pytest.fixture(scope="module", params=[4, 32, None])
 def resident_visits(request, atrium_case):
     """JAX's interpreted resident kernels (``stream=False``) and the port's
-    resident pair over the same clusters; Lmax 4 overflows every row."""
+    resident pair over the same clusters; Lmax 4 overflows every row, 32
+    (the width the card's M = 32 checks use) some."""
     sa, scene, jca, o3, d3, tmax, excl = atrium_case
     lmax = request.param
     jcf, jaf = jax_make_cluster_intersectors(
@@ -386,17 +396,121 @@ def resident_visits(request, atrium_case):
     assert cf.route == af.route == "resident"
     got = cf.planar_fn(o3, d3)
     occ = af.planar_fn(o3, d3, tmax, excl)
-    return scene, got, occ, ref, ref_occ
+    return scene, got, occ, ref, ref_occ, lmax
 
 
 def test_plain_closest_visit_matches_jax_resident(resident_visits):
     """The plain K4 against JAX's interpreted ``_closest_kernel``, under the
     module's visit tolerances."""
-    test_plain_closest_visit_matches_jax(resident_visits)
+    test_plain_closest_visit_matches_jax(resident_visits[:5])
 
 
 def test_plain_any_visit_matches_jax_resident(resident_visits):
-    test_plain_any_visit_matches_jax(resident_visits)
+    test_plain_any_visit_matches_jax(resident_visits[:5])
+
+
+def _lists(atrium_case, lmax, with_tmax):
+    """The port's plain cull of the case's rays (equal to JAX's,
+    test_plain_cull_equals_jax) and the packed clusters."""
+    sa, scene, jca, o3, d3, tmax, _ = atrium_case
+    ca = cluster_arrays_from_numpy(dataclasses.asdict(jca))
+    packed, attrs = cc.derive_buffers(scene, ca)
+    lists = cc.cull(o3, d3, torch.from_numpy(jca.bbox_min), torch.from_numpy(jca.bbox_max),
+                    min(lmax or cc.DEFAULT_LMAX, jca.K), tmax=tmax if with_tmax else None)
+    return lists, packed, attrs
+
+
+def test_per_warp_walk_matches_jax_resident(resident_visits, atrium_case):
+    """The resident kernels' exit rule is exact without a card: the replay
+    of the per-warp walk (each warp of 32 lanes stops at its own last
+    needed visit, K4/K5's rule) gives, bitwise, the plain version's answer
+    over every listed cluster (all K where a row overflowed), and so JAX's
+    interpreted ``_closest_kernel`` / ``_any_kernel`` (``stream=False``,
+    row-wide exits every 8 visits) under the module's visit tolerances;
+    the per-warp walk visits no more than the per-row one."""
+    scene, _, _, ref, ref_occ, lmax = resident_visits
+    _, _, _, o3, d3, tmax, excl = atrium_case
+    lists, packed, attrs = _lists(atrium_case, lmax, False)
+    slists, _, _ = _lists(atrium_case, lmax, True)
+    # Lmax 4 and 32 overflow rows into phase 2; the full width none.
+    assert bool(lists[0][:, 1].any()) == bool(slists[0][:, 1].any()) == (lmax is not None)
+    visits, tests, best = cc._visit_walk(*lists, o3, d3, packed, results=True)
+    full = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
+    walked = cc._closest_out(*best, attrs)
+    for field, a, b in zip(("t", "id", "u", "v", "attrs"), walked, full):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                           b.view(torch.int32) if b.is_floating_point() else b), field
+    assert torch.equal(tests, visits.long() * 32 * packed.shape[2])
+    t, tid, u, v, _ = walked
+    hit = t < cc.BIG
+    got = types.SimpleNamespace(hit=hit, t=t, tid=tid, u=u, v=v,
+                                attrs=ic.unpack_attrs_planar(walked[4]))
+    test_plain_closest_visit_matches_jax((scene, got, None, ref, None))
+    s_visits, _, occ = cc._visit_walk(*slists, o3, d3, packed, tmax, excl)
+    assert torch.equal(occ, cc.any_cluster_plain(*slists, o3, d3, tmax, excl, packed))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(ref_occ))
+    for v_warp, ls, tm in ((visits, lists, None), (s_visits, slists, tmax)):
+        v_row = cc.visit_counts_plain(*ls, o3, d3, packed, tm, None if tm is None else excl,
+                                      lanes=128)
+        assert v_warp.shape == (4, cc.WARPS) and v_row.shape == (4, 1)
+        assert bool((v_warp <= v_row).all()) and bool((v_warp.amax(1) == v_row[:, 0]).all())
+
+
+def _brute_visits(lists, o3, d3, packed, tmax, excl, lanes):
+    """The exit rule replayed one group of lanes and one visit at a time."""
+    meta, ids, nears, cutoff = (x.numpy() for x in lists)
+    K, _, M = packed.shape
+    out = np.zeros((o3.shape[1], 128 // lanes), np.int32)
+    for b, g in np.ndindex(*out.shape):
+        sl = slice(g * lanes, (g + 1) * lanes)
+        o = tuple(o3[a, b, sl][None] for a in range(3))
+        d = tuple(d3[a, b, sl][None] for a in range(3))
+        best = torch.full((lanes,), cc.BIG)
+        occ = torch.zeros(lanes, dtype=torch.bool)
+
+        def keep(bound):
+            if tmax is None:
+                return bool((best >= bound).any())
+            return bool((~occ & (tmax[b, sl] >= bound)).any())
+
+        def visit(c):
+            nonlocal best, occ
+            blk = packed[c]
+            cols = tuple(blk[k][:, None] for k in range(9))
+            ok, t, _, _ = ic._mt_core(o, d, cols[0:3], cols[3:6], cols[6:9])
+            if tmax is None:
+                best = torch.minimum(best, torch.where(ok & (t < cc.BIG), t, cc.BIG).amin(0))
+            else:
+                oid = blk[9].view(torch.int32)[:, None]
+                occ = occ | (ok & (t < tmax[b, sl]) & (oid != excl[b, sl])).any(0)
+
+        n = 0
+        while n < meta[b, 0] and keep(float(nears[b, n])):
+            visit(int(ids[b, n]))
+            n += 1
+        j = 0
+        while j < K and keep(float(cutoff[b, 0])):
+            visit(j)
+            j += 1
+        out[b, g] = n + j
+    return out
+
+
+@pytest.mark.parametrize("lmax", [4, 32])
+@pytest.mark.parametrize("with_tmax", [False, True])
+@pytest.mark.parametrize("lanes", [32, 128])
+def test_visit_counts_plain_equals_brute_replay(atrium_case, lmax, with_tmax, lanes):
+    """:func:`visit_counts_plain` (vectorised over groups) against a replay
+    of the same exit rule one group and one visit at a time, per warp
+    (K4/K5) and per row (K6/K7), phase 2 included (Lmax 4 and 32
+    overflow rows)."""
+    _, _, _, o3, d3, tmax, excl = atrium_case
+    lists, packed, _ = _lists(atrium_case, lmax, with_tmax)
+    tm, ex = (tmax, excl) if with_tmax else (None, None)
+    got = cc.visit_counts_plain(*lists, o3, d3, packed, tm, ex, lanes=lanes)
+    assert got.dtype == torch.int32 and got.shape == (o3.shape[1], 128 // lanes)
+    np.testing.assert_array_equal(got.numpy(), _brute_visits(lists, o3, d3, packed, tm, ex, lanes))
+    assert int(got.sum()) > 0
 
 
 def test_route_follows_the_stream_rule(atrium_case, monkeypatch):

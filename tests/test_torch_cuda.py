@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain torch versions, on a
 card: K1/K2 (dense), K3 (the cluster cull, also on its edge cases), K4/K5
-(the resident cluster visits) and K6/K7 (the streaming ones), X1 (the row-hit cull) and X2 (the
-double-buffered block fetch); K4/K5 also against K6/K7, and the card's
-gradients against the CPU's.
+(the resident cluster visits) and K6/K7 (the streaming ones),
+X1 (the row-hit cull) and X2 (the double-buffered block fetch); K4/K5 also
+against K6/K7, the visit counts against the torch replay of the exit rules,
+and the card's gradients against the CPU's.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -155,10 +156,10 @@ def test_dispatch_resolves_cluster_on_card(cuda_device):
     assert cf.route == "stream" and not cf.prefers_compaction
 
 
-def _atrium_lists(dev, lmax):
-    """atrium(2_200, seed=5) at M = 32 with seeded rays and both lists."""
+def _atrium_lists(dev, lmax, m=32):
+    """atrium(2_200, seed=5) at M = m with seeded rays and both lists."""
     scene = build_scene_tensors(atrium(2_200, seed=5), device=dev)
-    ca = build_clusters(*(x.cpu().numpy() for x in (scene.tri_v0, scene.tri_v1, scene.tri_v2)), 32)
+    ca = build_clusters(*(x.cpu().numpy() for x in (scene.tri_v0, scene.tri_v1, scene.tri_v2)), m)
     packed, attrs = cc.derive_buffers(scene, ca)
     bmin = torch.from_numpy(ca.bbox_min).to(dev)
     bmax = torch.from_numpy(ca.bbox_max).to(dev)
@@ -175,36 +176,51 @@ def _atrium_lists(dev, lmax):
     return packed, attrs, q
 
 
+# (M, Lmax): M = 32 (K = 85) overflowing into phase 2 and not; the main
+# path's M = 128 (K = 22); M = 1024 (K = 3), where K4's ring holds one slot
+# a warp (two need 320 KB).
+RESIDENT_CASES = [(32, 6), (32, 1536), (128, 6), (1024, 6)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("lmax", [6, 1536])
-def test_resident_kernels_equal_streaming_and_plain(lmax, cuda_device):
+@pytest.mark.parametrize("m, lmax", RESIDENT_CASES)
+def test_resident_kernels_equal_streaming_and_plain(m, lmax, cuda_device):
     """K4 bitwise equal to K6 and K5 to K7 on the same lists (the same
-    function by two memory routes), and both to the plain versions; Lmax 6
-    overflows rows into phase 2.  The per-row visit counts: phase 1 and 2
-    together never exceed trip + K, and K4 (early exit voted every 8
-    visits) visits at least as many clusters as K6 (voted every visit)."""
-    packed, attrs, q = _atrium_lists(cuda_device, lmax)
+    function by two walks), and both to the plain versions.  The visit
+    counts equal the torch replay of the exit rules exactly: K4/K5's per
+    warp, K6/K7's per row; a warp visits no more clusters than its row."""
+    packed, attrs, q = _atrium_lists(cuda_device, lmax, m)
     o3, d3, lists, slists = q["o3"], q["d3"], q["lists"], q["slists"]
-    before = dict(cc.LAUNCHES)
-    v4, v5, v6, v7 = (torch.zeros(B0, dtype=torch.int32, device=cuda_device) for _ in range(4))
-    k4 = cc.closest_resident(*lists, o3, d3, packed, attrs, visits=v4)
+    tmax, excl = q["tmax"], q["excl"]
+    v6, v7 = (torch.zeros(B0, dtype=torch.int32, device=cuda_device) for _ in range(2))
     k6 = cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=v6)
-    k5 = cc.any_resident(*slists, o3, d3, q["tmax"], q["excl"], packed, visits=v5)
-    k7 = cc.any_cluster(*slists, o3, d3, q["tmax"], q["excl"], packed, visits=v7)
+    k7 = cc.any_cluster(*slists, o3, d3, tmax, excl, packed, visits=v7)
+    want = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
+    want_occ = cc.any_cluster_plain(*slists, o3, d3, tmax, excl, packed)
+    w4 = cc.visit_counts_plain(*lists, o3, d3, packed)
+    w5 = cc.visit_counts_plain(*slists, o3, d3, packed, tmax, excl)
+    torch.cuda.synchronize()
+    assert torch.equal(v6, cc.visit_counts_plain(*lists, o3, d3, packed, lanes=128)[:, 0])
+    assert torch.equal(v7, cc.visit_counts_plain(*slists, o3, d3, packed, tmax, excl,
+                                                 lanes=128)[:, 0])
+    assert bool(lists[0][:, 1].any()) == (lmax == 6 and packed.shape[0] > 6)
+    v4, v5 = (torch.zeros((B0, cc.WARPS), dtype=torch.int32, device=cuda_device)
+              for _ in range(2))
+    before = dict(cc.LAUNCHES)
+    k4 = cc.closest_resident(*lists, o3, d3, packed, attrs, visits=v4)
+    k5 = cc.any_resident(*slists, o3, d3, tmax, excl, packed, visits=v5)
     torch.cuda.synchronize()
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
-        "cull": 0, "closest_resident": 1, "any_resident": 1, "closest_cluster": 1,
-        "any_cluster": 1}
-    want = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
+        "cull": 0, "closest_resident": 1, "any_resident": 1, "closest_cluster": 0,
+        "any_cluster": 0}
     for field, a, b, c in zip(("t", "id", "u", "v", "attrs"), k4, k6, want):
         assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), field
-    assert torch.equal(k5, k7)
-    assert torch.equal(k5, cc.any_cluster_plain(*slists, o3, d3, q["tmax"], q["excl"], packed))
-    assert bool(lists[0][:, 1].any()) == (lmax == 6)
-    K = packed.shape[0]
-    for got, ref, meta in ((v4, v6, lists[0]), (v5, v7, slists[0])):
-        assert bool((got >= ref).all()) and bool((ref >= 0).all())
-        assert bool((got <= meta[:, 0] + K).all()) and int(ref.sum()) > 0
+    assert torch.equal(k5, k7) and torch.equal(k5, want_occ)
+    assert torch.equal(v4, w4) and torch.equal(v5, w5)
+    for got, row in ((v4, v6), (v5, v7)):
+        assert bool((got <= row[:, None]).all()) and bool((got.amax(1) == row).all())
+    assert int(v4.sum()) > 0 and int(v5.sum()) > 0
+    assert 0.05 < float(want_occ.float().mean()) < 0.95
 
 
 def _cull_inputs(dev, B0_, K, with_tmax, axis_parallel, on_planes, seed):
@@ -278,6 +294,24 @@ def test_k3_equals_plain_on_card(case, cuda_device):
         want = cc.cull_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
         for field, a, b in zip(("meta", "ids", "nears", "cutoff"), got, want):
             assert torch.equal(_bits(a), _bits(b)), (le, field)
+
+
+@pytest.mark.cuda
+def test_k3_with_no_boxes_on_card(cuda_device):
+    """K = 0: no launch, and every count zero (not whatever the allocator
+    hands back: a freed block of the count's size filled with 7s is there
+    to be reused), keys and hit mask without a column."""
+    t = _cull_inputs(cuda_device, 5, 3, False, False, False, seed=4)
+    junk = torch.full((5,), 7, dtype=torch.int32, device=cuda_device)
+    del junk
+    before = cc.LAUNCHES["cull"]
+    for tmax in (None, torch.ones((5, 128), device=cuda_device)):
+        count, key, hit = cc.cull_sweep(t["o3"], t["d3"], t["bmin"][:0], t["bmax"][:0], tmax,
+                                        hits=True)
+        torch.cuda.synchronize()
+        assert torch.equal(count, torch.zeros(5, dtype=torch.int32, device=cuda_device))
+        assert key.shape == hit.shape == (5, 0)
+    assert cc.LAUNCHES["cull"] == before
 
 
 @pytest.mark.cuda

@@ -153,3 +153,17 @@ def test_eye_inside_boxes_lists_tied_at_zero_in_id_order(with_tmax):
         tied = ids[0, :zeros]
         assert torch.equal(tied, torch.sort(tied).values)    # id order
         assert bool(meta[:, 1].any()) == (lmax == 4)
+
+
+def test_sweep_with_no_boxes():
+    """K = 0 (a direct call; ``cull`` rejects it): every row's count is
+    zero and the keys and hit mask have no column, on the CPU as on a card
+    (where nothing is launched: tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(3)
+    o3 = torch.from_numpy(rng.uniform(-1, 1, (3, 5, 128)).astype(np.float32))
+    d3 = torch.from_numpy(rng.normal(size=(3, 5, 128)).astype(np.float32))
+    none = torch.zeros((0, 3))
+    for tmax in (None, torch.ones(5, 128)):
+        count, key, hit = cc.cull_sweep(o3, d3, none, none, tmax, hits=True)
+        assert count.dtype == torch.int32 and torch.equal(count, torch.zeros(5, dtype=torch.int32))
+        assert key.shape == hit.shape == (5, 0)

@@ -215,3 +215,25 @@ def test_auto_dispatch_by_scene_size():
         make_intersectors(scene, "bvh")
     with pytest.raises(ValueError):
         make_intersectors(scene, "nope")
+
+
+@pytest.mark.parametrize("method", ["pallas", "bvh"])
+def test_jax_intersector_names(method):
+    """The JAX package's intersector names in a ``.rtc``: ``pallas`` (its
+    dense Pallas sweep, which K1/K2 port) selects the dense pair and renders
+    a Cornell image bitwise equal to ``dense``; ``bvh`` is not ported yet
+    and raises (ROADMAP item 10)."""
+    from chiaroscuro_tpu_torch.render.renderer import render_image
+    from chiaroscuro_tpu_torch.scene.config import RenderConfig
+
+    scene = _port_scene(SCENES["cornell"]())
+    if method == "bvh":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+            make_intersectors(scene, method)
+        return
+    tokens = ["input", "builtin:cornell_box", "xres", "16", "yres", "12", "samples", "2",
+              "k", "2", "platform", "cpu"]
+    imgs = {m: render_image(scene, RenderConfig.from_tokens(tokens + ["intersector", m]))
+            for m in (method, "dense")}
+    assert float(imgs["dense"].max()) > 0.0
+    assert torch.equal(imgs[method], imgs["dense"])
