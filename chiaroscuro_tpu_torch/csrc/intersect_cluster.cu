@@ -1,13 +1,13 @@
-// Cluster visits for Hopper (sm_90a): streaming and resident.
+// Cluster visits for Hopper (sm_90a): closest hit and occlusion.
 //
-// K6 closest_cluster replaces
-// chiaroscuro_tpu/ops/cluster_pallas.py::_stream_closest_kernel and K7
-// any_cluster replaces ::_stream_any_kernel; K4 closest_resident replaces
-// ::_closest_kernel and K5 any_resident replaces ::_any_kernel.  All four
-// consume the per-row lists the cull K3 writes (csrc/cull_rows.cu): meta
-// (B0, 2) [trip, overflow], ids (B0, Le) near-ascending cluster ids, nears
-// (B0, Le) entry lower bounds, cutoff (B0,) the entry of the first box left
-// off the list (+inf unless the row overflowed).
+// K4 closest_resident replaces
+// chiaroscuro_tpu/ops/cluster_pallas.py::_closest_kernel and K5 any_resident
+// ::_any_kernel; K6 closest_cluster replaces ::_stream_closest_kernel and K7
+// any_cluster ::_stream_any_kernel.  All four consume the per-row lists the
+// cull K3 writes (csrc/cull_rows.cu): meta (B0, 2) [trip, overflow], ids
+// (B0, Le) near-ascending cluster ids, nears (B0, Le) entry lower bounds,
+// cutoff (B0,) the entry of the first box left off the list (+inf unless the
+// row overflowed).
 //
 // What they compute, as the TPU kernels do.  Phase 1 visits the listed
 // clusters near to far and stops once no lane can improve: closest while
@@ -22,68 +22,71 @@
 // carried over).  Ids are int32 throughout; a miss writes t = BIG, id = 0,
 // u = v = 0 and zero attributes.  The JAX package's 2^24 triangle limit is
 // kept by the wrapper (ops/cluster_cuda.py).  K4 and K6 (K5 and K7) compute
-// the same function by two walks and are bitwise equal.
+// the same function and are bitwise equal.
 //
-// Layout.  One block of 128 threads owns one 128-lane ray row, one thread
-// per ray; the running best lives in registers.  The cluster matrix is
-// (K, 10, M) f32 in global memory, field-major per cluster: rows 0-8 are
-// v0|e1|e2, row 9 the original triangle id as int32 bits; padded slots are
-// all-zero triangles (determinant 0, never hit).  Every thread reads the
-// same triangle at once (a broadcast).
+// Layout.  One block owns one 128-lane ray row, one thread per ray; the
+// running best lives in registers.  The cluster matrix is (K, 10, M) f32 in
+// global memory, field-major per cluster: rows 0-8 are v0|e1|e2, row 9 the
+// original triangle id as int32 bits; padded slots are all-zero triangles
+// (determinant 0, never hit).  Every thread reads the same triangle at once
+// (a broadcast).
 //
-// - Streaming (K6/K7): the block walks the row's list together.  Each
-//   visited cluster's 10 x M block (5 KB at M = 128) is staged into shared
-//   memory with cp.async into a two-slot buffer, the next listed cluster's
-//   copy in flight while the current one is tested: the counterpart of the
-//   TPU kernels' DMA double buffer (cluster_pallas.py:642-697).  The
-//   early-exit test runs after every visit as a block-wide vote
-//   (__syncthreads_or), which is also the barrier that frees the slot the
-//   next copy overwrites.
-// - Resident (K4/K5): on the TPU the whole packed matrix sits in VMEM.  The
-//   card's counterpart is its 50 MB L2: the JAX rule sends a scene here only
-//   when its 48-row matrix is within 72 MiB, so the port's 10-row matrix is
-//   at most 15 MiB.  Each of the block's four warps walks the row's list on
-//   its own and decides its own exit after every visit with one __any_sync
-//   over its 32 lanes (closest: some lane's best t >= the next near, then
-//   >= the cutoff; any: some unoccluded lane's tmax >= it).  The rule is
-//   exact for the reason the row vote is: the row's nears lower-bound every
-//   lane's box entry, and the (t, id) minimum and the OR do not depend on
-//   which warp visits what.  A warp stops at its own last needed visit, and
-//   no barrier of the block runs after the set-up.  The two fetch a block
-//   differently, each the faster way in the atrium frames on an H100
-//   (PERF.md):
-//   * K4 stages it: each warp owns a ring of two slots in shared memory
-//     (one where two do not fit, M > 724); lane 0 copies a visit's whole
-//     block with one cp.async.bulk completing on the slot's mbarrier, the
-//     next visit's copy in flight while this one is tested (40 KB a block
-//     of rows at M = 128);
-//   * K5 reads it in place through L1/L2, its lines prefetched into L1
-//     (prefetch.global.L1) by the warp one visit ahead: a K5 visit often
-//     ends a few triangles into its block, where a whole-block copy and
-//     the ring's shared memory (5 blocks a multiprocessor) cost more than
-//     they save.
-//   Both read four triangles' fields with one 16-byte load a row, and the
-//   M = 128 instantiation has a compile-time trip count, so loads and MT
-//   arithmetic of several triangles overlap; other M (multiples of 4 up to
-//   1024) take the generic instantiation.  In K5 a lane that is already
-//   occluded tests nothing, and the warp leaves a block once all its lanes
-//   are occluded (__all_sync every 8 triangles).
+// The walk (all four).  Each of the row's four warps walks the row's list
+// on its own and decides its own exit after every visit with one __any_sync
+// over its 32 lanes (closest: some lane's best t >= the next near, then
+// >= the cutoff; any: some unoccluded lane's tmax >= it).  The rule is
+// exact for the reason a row vote is: the row's nears lower-bound every
+// lane's box entry, and the (t, id) minimum and the OR do not depend on
+// which warp visits what.  A warp stops at its own last needed visit.  The
+// visit bodies read four triangles' fields with one 16-byte load a row, and
+// the M = 128 instantiation has a compile-time trip count, so loads and MT
+// arithmetic of several triangles overlap; other M (multiples of 4 up to
+// 1024) take the generic instantiation.  In an occlusion visit a lane that
+// is already occluded tests nothing, and the warp leaves a block once all
+// its lanes are occluded (__all_sync every 8 triangles).
 //
-// A row with trip 0 (parked rays) makes no phase-1 visit.  With a non-null
-// visits_out the kernels write the clusters they visited (both phases): K6/K7
-// one count per row (B0,), K4/K5 one per warp (B0, 4).  These equal the
-// torch replay of the exit rules (ops/cluster_cuda.py::visit_counts_plain)
-// and give the bound in PERF.md the work these inputs needed.
+// The fetch, and why the four are two kernels.  On the TPU the resident
+// kernels read a VMEM-resident matrix and the streaming ones DMA each
+// visited block from HBM per row.  On the card every kernel reads the one
+// matrix in device memory, through the 50 MB L2 that holds it up to ~400k
+// triangles.  The closest visit (K4 and K6: closest_visits_kernel) stages a
+// block: each warp owns a ring of two slots in shared memory (one where two
+// do not fit, M > 724); lane 0 copies a visit's whole block with one
+// cp.async.bulk completing on the slot's mbarrier, the next visit's copy in
+// flight while this one is tested (40 KB a block of rows at M = 128).  The
+// occlusion visit (K5 and K7: any_visits_kernel) reads each block in place
+// through L1/L2, its lines prefetched into L1 (prefetch.global.L1) one
+// visit ahead: an occlusion visit often ends a few triangles into its
+// block.  A streaming fetch that copies each block once per row-visit -- a
+// fifth, producer warp keeping bulk copies in flight into a ring of four
+// slots the row's warps share -- was measured against these on the same
+// lists, with the matrix in L2 (481k triangles, 18.4 MiB) and outgrowing it
+// (3M, 114.4 MiB): it lost at full occupancy on every wavefront (0.83-0.94x
+// for the closest visit, 0.92-0.93x for occlusion), because its extra warp
+// costs a fifth of the registers a multiprocessor can give to testing
+// warps, while the L2 absorbs a row's four warps reading one block a few
+// visits apart (PERF.md).  So one kernel serves both routes of a
+// query, and the wrappers (ops/cluster_cuda.py) keep the routes' names and
+// launch counts.
+//
+// Visit counts.  With a non-null visits_out the kernels write the clusters
+// each warp visited (both phases), (B0, 4).  These equal the torch replay of
+// the exit rule (ops/cluster_cuda.py::visit_counts_plain) and give the
+// bound in PERF.md the work these inputs needed.  A row with trip 0 (parked
+// rays) makes no phase-1 visit.
 //
 // What bounds it on an H100.  A visit is lanes x M Moller-Trumbore tests of
 // ~54 FP32 operations (-fmad=false: no fused multiply-add, so the peak is
-// 33.5 T unfused operations/s) on 5 KB from L2 or device memory: ~160
-// operations per byte at M = 128 per 128 lanes, so with the blocks in L2 the
-// kernels are arithmetic-bound.  Tensor cores do not apply: the test is
-// scalar FP32 with a bitwise contract.  What the resident design does about
-// the bound: it cuts the tests (per-warp exits, occluded lanes idle) and
-// keeps the next block's bytes in flight, so a warp waits on arithmetic
-// rather than on L2.
+// 33.5 T unfused operations/s) on one 5 KB block at M = 128.  The card's
+// balance is 10 operations a byte (33.5 T / 3.35 TB/s of device memory): a
+// warp's closest visit does ~43 per byte it fetches, an occlusion visit
+// fewer (its lanes stop at their first blocker), and the four warps of a
+// row fetch a block a few visits apart, so the L2 serves the repeats even
+// when the matrix outgrows it.  The kernels are arithmetic-bound.  Tensor
+// cores do not apply: the test is scalar FP32 with a bitwise contract.
+// What the design does about the bound: it cuts the tests (per-warp exits,
+// occluded lanes idle) and keeps the next blocks' bytes in flight, so a
+// warp waits on arithmetic rather than on memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC.  With -fmad=false and mt_core.cuh's
@@ -109,199 +112,9 @@ constexpr int kNoId = 0x7fffffff;
 constexpr int kWarps = kLanes / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMainM = 128;     // the main path's cluster width
-constexpr int kMaxSlots = 2;    // ring slots a warp (K4)
+constexpr int kMaxSlots = 2;    // ring slots a warp (closest)
 constexpr int kBarBytes = 128;  // kWarps * kMaxSlots mbarriers, padded
-constexpr int kAnyGroup = 8;    // K5 triangles between occlusion votes
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Cooperative asynchronous copy of cluster `cid`'s 10 x M block into `dst`,
-// 16 bytes per cp.async (the wrapper checks alignment and M % 4 == 0).
-__device__ __forceinline__ void stage_block(float* dst,
-                                            const float* __restrict__ packed,
-                                            int cid, int block_floats) {
-  const float* src = packed + (size_t)cid * block_floats;
-  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
-  for (int k = threadIdx.x; k < block_floats / 4; k += kLanes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                     base + 16u * (uint32_t)k),
-                 "l"(src + 4 * k)
-                 : "memory");
-  }
-}
-
-// Visit clusters cid_of(0), cid_of(1), ... cid_of(n - 1) in order through
-// the two-slot shared buffer, for as long as some thread's keep(j) holds
-// before visit j.  keep and the list are uniform across the block's calls;
-// every thread calls this the same number of times.  Returns the number of
-// clusters visited.
-template <class CidOf, class Keep, class Visit>
-__device__ __forceinline__ int stream_visits(float* buf,
-                                             const float* __restrict__ packed,
-                                             int block_floats, int n,
-                                             CidOf cid_of, Keep keep,
-                                             Visit visit) {
-  if (n <= 0 || !__syncthreads_or(keep(0))) return 0;
-  stage_block(buf, packed, cid_of(0), block_floats);
-  cp_async_commit();
-  int j = 0;
-  for (;;) {
-    // Prefetch visit j + 1 into the other slot (an empty group past the
-    // end keeps the wait count uniform), then wait for visit j's copy.
-    if (j + 1 < n) {
-      stage_block(buf + ((j + 1) & 1) * block_floats, packed, cid_of(j + 1),
-                  block_floats);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    visit(buf + (j & 1) * block_floats);
-    ++j;
-    // The vote is also the barrier before the next prefetch overwrites the
-    // slot just visited.
-    if (j >= n || !__syncthreads_or(keep(j))) break;
-  }
-  // Drain a prefetch that an early exit left in flight before the slots are
-  // reused.
-  cp_async_wait_all();
-  __syncthreads();
-  return j;
-}
-
-// Phase 1 over the row's list, then phase 2 over every cluster, through the
-// block's two-slot buffer; returns the row's visit count.
-template <class Keep1, class Keep2, class Visit>
-__device__ __forceinline__ int stream_row(float* buf,
-                                          const float* __restrict__ packed,
-                                          int block_floats, int trip,
-                                          const int32_t* row_ids,
-                                          int n_clusters, Keep1 keep1,
-                                          Keep2 keep2, Visit visit) {
-  auto listed = [&](int j) { return row_ids[j]; };
-  auto every = [](int j) { return j; };
-  const int n1 = stream_visits(buf, packed, block_floats, trip, listed,
-                               keep1, visit);
-  return n1 + stream_visits(buf, packed, block_floats, n_clusters, every,
-                            keep2, visit);
-}
-
-__global__ void __launch_bounds__(kLanes)
-closest_cluster_kernel(const int32_t* __restrict__ meta,
-                       const int32_t* __restrict__ ids,
-                       const float* __restrict__ nears,
-                       const float* __restrict__ cutoff,
-                       const float* __restrict__ o3,
-                       const float* __restrict__ d3,
-                       const float* __restrict__ packed,
-                       const float* __restrict__ attrs, int n_rows, int le,
-                       int n_clusters, int m, float* __restrict__ t_out,
-                       int32_t* __restrict__ id_out, float* __restrict__ u_out,
-                       float* __restrict__ v_out,
-                       float* __restrict__ attr_out,
-                       int32_t* __restrict__ visits_out) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
-  const int row = blockIdx.x;
-  const size_t plane = (size_t)n_rows * kLanes;
-  const size_t i = (size_t)row * kLanes + threadIdx.x;
-  const int block_floats = kGeoRows * m;
-  const Ray r = load_ray(o3, d3, plane, i);
-  const int trip = meta[2 * row];
-  const int32_t* row_ids = ids + (size_t)row * le;
-  const float* row_nears = nears + (size_t)row * le;
-  const float cut = cutoff[row];
-
-  float best_t = kBig, best_u = 0.0f, best_v = 0.0f;
-  int best_id = kNoId;
-  auto visit = [&](const float* blk) {
-    for (int s = 0; s < m; ++s) {
-      float t, u, v;
-      if (mt::mt_hit(r, blk + s, m, t, u, v) && t < kBig) {
-        const int id = __float_as_int(blk[kIdRow * m + s]);
-        if (t < best_t || (t == best_t && id < best_id)) {
-          best_t = t;
-          best_u = u;
-          best_v = v;
-          best_id = id;
-        }
-      }
-    }
-  };
-  // Phase 1 while some lane's best t reaches the next box; phase 2 while
-  // some lane could still be beaten past the cutoff (never for rows that
-  // did not overflow: cutoff = +inf).
-  const int visits = stream_row(
-      buf, packed, block_floats, trip, row_ids, n_clusters,
-      [&](int j) { return best_t >= row_nears[j]; },
-      [&](int) { return best_t >= cut; }, visit);
-
-  const bool hit = best_t < kBig;
-  const int id = hit ? best_id : 0;
-  t_out[i] = best_t;
-  id_out[i] = id;
-  u_out[i] = best_u;
-  v_out[i] = best_v;
-  mt::store_attrs(attrs, hit, id, plane, i, attr_out);
-  if (visits_out != nullptr && threadIdx.x == 0) visits_out[row] = visits;
-}
-
-__global__ void __launch_bounds__(kLanes)
-any_cluster_kernel(const int32_t* __restrict__ meta,
-                   const int32_t* __restrict__ ids,
-                   const float* __restrict__ nears,
-                   const float* __restrict__ cutoff,
-                   const float* __restrict__ o3, const float* __restrict__ d3,
-                   const float* __restrict__ tmax,
-                   const int32_t* __restrict__ excl,
-                   const float* __restrict__ packed, int n_rows, int le,
-                   int n_clusters, int m, uint8_t* __restrict__ occ_out,
-                   int32_t* __restrict__ visits_out) {
-  extern __shared__ float4 smem4[];
-  float* buf = reinterpret_cast<float*>(smem4);
-  const int row = blockIdx.x;
-  const size_t plane = (size_t)n_rows * kLanes;
-  const size_t i = (size_t)row * kLanes + threadIdx.x;
-  const int block_floats = kGeoRows * m;
-  const Ray r = load_ray(o3, d3, plane, i);
-  const float tm = tmax[i];
-  const int ex = excl[i];
-  const int trip = meta[2 * row];
-  const int32_t* row_ids = ids + (size_t)row * le;
-  const float* row_nears = nears + (size_t)row * le;
-  const float cut = cutoff[row];
-
-  bool occ = false;
-  auto visit = [&](const float* blk) {
-    for (int s = 0; s < m && !occ; ++s) {
-      float t, u, v;
-      occ = mt::mt_hit(r, blk + s, m, t, u, v) && t < tm &&
-            __float_as_int(blk[kIdRow * m + s]) != ex;
-    }
-  };
-  // Some lane still open whose shadow segment reaches the next box (phase
-  // 1) or the cutoff (phase 2).
-  const int visits = stream_row(
-      buf, packed, block_floats, trip, row_ids, n_clusters,
-      [&](int j) { return !occ && tm >= row_nears[j]; },
-      [&](int) { return !occ && tm >= cut; }, visit);
-  occ_out[i] = occ ? 1 : 0;
-  if (visits_out != nullptr && threadIdx.x == 0) visits_out[row] = visits;
-}
-
-// ---------------------------------------------------------------------------
-// Resident (K4/K5): warp-owned walks.
-// ---------------------------------------------------------------------------
+constexpr int kAnyGroup = 8;    // triangles between occlusion votes
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -406,11 +219,11 @@ __device__ __forceinline__ void prefetch_block(const float* blk,
 
 // One warp visits cid_of(0), ..., cid_of(n - 1) in order for as long as some
 // lane's keep(j) holds before visit j, voted by the warp alone after every
-// visit.  Staged (K4): the first n_slots blocks are copied at once and each
-// later copy is issued as a slot frees, so n_slots - 1 copies fly while a
-// block is tested (a copy past an exit is drained, never visited).  Direct
-// (K5, no ring): the block is read in place and the next one prefetched.
-// Returns the visit count.
+// visit.  Staged (closest): the first n_slots blocks are copied at once and
+// each later copy is issued as a slot frees, so n_slots - 1 copies fly while
+// a block is tested (a copy past an exit is drained, never visited).  Direct
+// (occlusion, no ring): the block is read in place and the next one
+// prefetched.  Returns the visit count.
 template <bool kStaged, class CidOf, class Keep, class Visit>
 __device__ __forceinline__ int warp_visits(WarpRing& ring,
                                            const float* __restrict__ packed,
@@ -486,7 +299,7 @@ struct Best {
   int id;
 };
 
-// K4's visit: every triangle of the block against the lane's ray, the
+// The closest visit: every triangle of the block against the lane's ray, the
 // lexicographic (t, id) minimum kept.  kM > 0 fixes M at compile time.
 template <int kM>
 __device__ __forceinline__ void closest_visit(const Ray& r, const float* blk,
@@ -507,7 +320,7 @@ __device__ __forceinline__ void closest_visit(const Ray& r, const float* blk,
   }
 }
 
-// K5's visit: an open lane tests triangles for a blocker (id != ex at
+// The occlusion visit: an open lane tests triangles for a blocker (id != ex at
 // t < tm); an occluded lane tests none, and the warp leaves the block once
 // every lane is occluded, voted every kAnyGroup triangles.
 template <int kM>
@@ -538,20 +351,19 @@ __device__ __forceinline__ void any_visit(const Ray& r, float tm, int ex,
 
 template <int kM>
 __global__ void __launch_bounds__(kLanes)
-closest_resident_kernel(const int32_t* __restrict__ meta,
-                        const int32_t* __restrict__ ids,
-                        const float* __restrict__ nears,
-                        const float* __restrict__ cutoff,
-                        const float* __restrict__ o3,
-                        const float* __restrict__ d3,
-                        const float* __restrict__ packed,
-                        const float* __restrict__ attrs, int n_rows, int le,
-                        int n_clusters, int m, int n_slots,
-                        float* __restrict__ t_out,
-                        int32_t* __restrict__ id_out,
-                        float* __restrict__ u_out, float* __restrict__ v_out,
-                        float* __restrict__ attr_out,
-                        int32_t* __restrict__ visits_out) {
+closest_visits_kernel(const int32_t* __restrict__ meta,
+                      const int32_t* __restrict__ ids,
+                      const float* __restrict__ nears,
+                      const float* __restrict__ cutoff,
+                      const float* __restrict__ o3,
+                      const float* __restrict__ d3,
+                      const float* __restrict__ packed,
+                      const float* __restrict__ attrs, int n_rows, int le,
+                      int n_clusters, int m, int n_slots,
+                      float* __restrict__ t_out, int32_t* __restrict__ id_out,
+                      float* __restrict__ u_out, float* __restrict__ v_out,
+                      float* __restrict__ attr_out,
+                      int32_t* __restrict__ visits_out) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int row = blockIdx.x;
   const size_t plane = (size_t)n_rows * kLanes;
@@ -585,17 +397,16 @@ closest_resident_kernel(const int32_t* __restrict__ meta,
 
 template <int kM>
 __global__ void __launch_bounds__(kLanes)
-any_resident_kernel(const int32_t* __restrict__ meta,
-                    const int32_t* __restrict__ ids,
-                    const float* __restrict__ nears,
-                    const float* __restrict__ cutoff,
-                    const float* __restrict__ o3,
-                    const float* __restrict__ d3,
-                    const float* __restrict__ tmax,
-                    const int32_t* __restrict__ excl,
-                    const float* __restrict__ packed, int n_rows, int le,
-                    int n_clusters, int m, uint8_t* __restrict__ occ_out,
-                    int32_t* __restrict__ visits_out) {
+any_visits_kernel(const int32_t* __restrict__ meta,
+                  const int32_t* __restrict__ ids,
+                  const float* __restrict__ nears,
+                  const float* __restrict__ cutoff,
+                  const float* __restrict__ o3, const float* __restrict__ d3,
+                  const float* __restrict__ tmax,
+                  const int32_t* __restrict__ excl,
+                  const float* __restrict__ packed, int n_rows, int le,
+                  int n_clusters, int m, uint8_t* __restrict__ occ_out,
+                  int32_t* __restrict__ visits_out) {
   const int row = blockIdx.x;
   const size_t plane = (size_t)n_rows * kLanes;
   const size_t i = (size_t)row * kLanes + threadIdx.x;
@@ -607,7 +418,7 @@ any_resident_kernel(const int32_t* __restrict__ meta,
   const int32_t* row_ids = ids + (size_t)row * le;
   const float* row_nears = nears + (size_t)row * le;
   const float cut = cutoff[row];
-  WarpRing ring{};   // unused: K5 reads its blocks in place
+  WarpRing ring{};   // unused: occlusion reads its blocks in place
 
   bool occ = false;
   const int visits = warp_row<false>(
@@ -621,23 +432,10 @@ any_resident_kernel(const int32_t* __restrict__ meta,
   }
 }
 
-// Streaming kernels stage two blocks in dynamic shared memory: opt
-// `kernel` in where they exceed the 48 KB default (M > 614); returns the
-// bytes through `bytes` and a CUDA error code.
-template <class Kernel>
-int stream_setup(Kernel kernel, int m, size_t* bytes) {
-  *bytes = 2 * kGeoRows * (size_t)m * sizeof(float);
-  if (*bytes > 48 * 1024) {
-    return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
-  }
-  return (int)cudaSuccess;
-}
-
-// K4's ring slots a warp for M = m (two, or one where two do not fit the
-// card's opt-in shared memory; 0 if none fits) and the dynamic shared
-// memory that takes.
-int resident_slots(int m, size_t* bytes) {
+// The closest visit's ring slots a warp for M = m (two, or one where two do
+// not fit the card's opt-in shared memory; 0 if none fits) and the dynamic
+// shared memory that takes.
+int closest_slots(int m, size_t* bytes) {
   static int optin = -1;
   if (optin < 0) {
     int dev = 0;
@@ -654,11 +452,11 @@ int resident_slots(int m, size_t* bytes) {
   return 0;
 }
 
-// The shared memory and ring slots of a K4 launch, `kernel` opted in where
-// the ring exceeds the 48 KB default; returns a CUDA error code.
+// The shared memory and ring slots of a closest launch, `kernel` opted in
+// where the ring exceeds the 48 KB default; returns a CUDA error code.
 template <class Kernel>
-int resident_setup(Kernel kernel, int m, size_t* bytes, int* n_slots) {
-  *n_slots = resident_slots(m, bytes);
+int closest_setup(Kernel kernel, int m, size_t* bytes, int* n_slots) {
+  *n_slots = closest_slots(m, bytes);
   if (*n_slots == 0) return (int)cudaErrorInvalidValue;
   if (*bytes > 48 * 1024) {
     return (int)cudaFuncSetAttribute(
@@ -669,65 +467,26 @@ int resident_setup(Kernel kernel, int m, size_t* bytes, int* n_slots) {
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes.  Each launches on `stream`,
+// Plain C entry points, bound with ctypes: the closest visits (K4 and K6)
+// and the occlusion visits (K5 and K7).  Each launches on `stream`,
 // allocates nothing, does not synchronise, and returns the first CUDA error
 // (a shared-memory opt-in, then cudaGetLastError()).  visits_out may be
-// null.
+// null; else it is (n_rows, 4) int32.
 extern "C" {
 
-int closest_cluster_launch(const void* meta, const void* ids,
-                           const void* nears, const void* cutoff,
-                           const void* o3, const void* d3, const void* packed,
-                           const void* attrs, int n_rows, int le,
-                           int n_clusters, int m, void* t_out, void* id_out,
-                           void* u_out, void* v_out, void* attr_out,
-                           void* visits_out, void* stream) {
-  size_t bytes;
-  const int err = stream_setup(closest_cluster_kernel, m, &bytes);
-  if (err != 0) return err;
-  if (n_rows > 0) {
-    closest_cluster_kernel<<<n_rows, kLanes, bytes, (cudaStream_t)stream>>>(
-        (const int32_t*)meta, (const int32_t*)ids, (const float*)nears,
-        (const float*)cutoff, (const float*)o3, (const float*)d3,
-        (const float*)packed, (const float*)attrs, n_rows, le, n_clusters, m,
-        (float*)t_out, (int32_t*)id_out, (float*)u_out, (float*)v_out,
-        (float*)attr_out, (int32_t*)visits_out);
-  }
-  return (int)cudaGetLastError();
-}
-
-int any_cluster_launch(const void* meta, const void* ids, const void* nears,
-                       const void* cutoff, const void* o3, const void* d3,
-                       const void* tmax, const void* excl, const void* packed,
-                       int n_rows, int le, int n_clusters, int m,
-                       void* occ_out, void* visits_out, void* stream) {
-  size_t bytes;
-  const int err = stream_setup(any_cluster_kernel, m, &bytes);
-  if (err != 0) return err;
-  if (n_rows > 0) {
-    any_cluster_kernel<<<n_rows, kLanes, bytes, (cudaStream_t)stream>>>(
-        (const int32_t*)meta, (const int32_t*)ids, (const float*)nears,
-        (const float*)cutoff, (const float*)o3, (const float*)d3,
-        (const float*)tmax, (const int32_t*)excl, (const float*)packed, n_rows,
-        le, n_clusters, m, (uint8_t*)occ_out, (int32_t*)visits_out);
-  }
-  return (int)cudaGetLastError();
-}
-
-int closest_resident_launch(const void* meta, const void* ids,
-                            const void* nears, const void* cutoff,
-                            const void* o3, const void* d3,
-                            const void* packed, const void* attrs, int n_rows,
-                            int le, int n_clusters, int m, void* t_out,
-                            void* id_out, void* u_out, void* v_out,
-                            void* attr_out, void* visits_out, void* stream) {
+int closest_visits_launch(const void* meta, const void* ids, const void* nears,
+                          const void* cutoff, const void* o3, const void* d3,
+                          const void* packed, const void* attrs, int n_rows,
+                          int le, int n_clusters, int m, void* t_out,
+                          void* id_out, void* u_out, void* v_out,
+                          void* attr_out, void* visits_out, void* stream) {
   // M = 128 takes the instantiation with a compile-time trip count.
   const bool main_m = m == kMainM;
-  const auto kernel = main_m ? closest_resident_kernel<kMainM>
-                             : closest_resident_kernel<0>;
+  const auto kernel = main_m ? closest_visits_kernel<kMainM>
+                             : closest_visits_kernel<0>;
   size_t bytes;
   int n_slots;
-  const int err = resident_setup(kernel, m, &bytes, &n_slots);
+  const int err = closest_setup(kernel, m, &bytes, &n_slots);
   if (err != 0) return err;
   if (n_rows > 0) {
     kernel<<<n_rows, kLanes, bytes, (cudaStream_t)stream>>>(
@@ -740,14 +499,13 @@ int closest_resident_launch(const void* meta, const void* ids,
   return (int)cudaGetLastError();
 }
 
-int any_resident_launch(const void* meta, const void* ids, const void* nears,
-                        const void* cutoff, const void* o3, const void* d3,
-                        const void* tmax, const void* excl,
-                        const void* packed, int n_rows, int le,
-                        int n_clusters, int m, void* occ_out,
-                        void* visits_out, void* stream) {
-  const auto kernel = m == kMainM ? any_resident_kernel<kMainM>
-                                  : any_resident_kernel<0>;
+int any_visits_launch(const void* meta, const void* ids, const void* nears,
+                      const void* cutoff, const void* o3, const void* d3,
+                      const void* tmax, const void* excl, const void* packed,
+                      int n_rows, int le, int n_clusters, int m, void* occ_out,
+                      void* visits_out, void* stream) {
+  const auto kernel = m == kMainM ? any_visits_kernel<kMainM>
+                                  : any_visits_kernel<0>;
   if (n_rows > 0) {
     kernel<<<n_rows, kLanes, 0, (cudaStream_t)stream>>>(
         (const int32_t*)meta, (const int32_t*)ids, (const float*)nears,
@@ -758,11 +516,11 @@ int any_resident_launch(const void* meta, const void* ids, const void* nears,
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory of a K4 launch at M = m (its ring and
+// The dynamic shared memory of a closest launch at M = m (its ring and
 // barriers); 0 where no ring fits.
-int closest_resident_smem_bytes(int m) {
+int closest_visits_smem_bytes(int m) {
   size_t bytes;
-  return resident_slots(m, &bytes) > 0 ? (int)bytes : 0;
+  return closest_slots(m, &bytes) > 0 ? (int)bytes : 0;
 }
 
 const char* intersect_cluster_error_string(int code) {

@@ -64,8 +64,7 @@ __device__ __forceinline__ bool mt_test(const Ray& r, const Tri& tri,
 }
 
 // The test on a triangle whose nine fields lie `stride` floats apart in
-// memory: 1 for the dense kernels' (T, 9) rows, M for a cluster block's
-// field-major rows.
+// memory (the dense kernels' (T, 9) rows: 1).
 __device__ __forceinline__ bool mt_hit(const Ray& r, const float* tri,
                                        int stride, float& t, float& u,
                                        float& v) {

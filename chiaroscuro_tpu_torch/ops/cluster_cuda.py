@@ -17,13 +17,16 @@ The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
   (``_stream_any_kernel`` :750).  Each visits the listed clusters near to
   far with early exit, then sweeps all K clusters for overflow rows
   (``csrc/intersect_cluster.cu``, built by ``nvcc`` for ``sm_90a`` at first
-  use, bound with ``ctypes``).  The streaming pair walks a row's list with
-  the whole block, staging each cluster through shared memory and voting
-  after every visit; in the resident pair each of the row's four warps
-  walks the list on its own and votes after every visit over its 32 lanes
-  (K4 bulk-copies each block into the warp's ring in shared memory, K5
-  reads it in place with an L1 prefetch).  :func:`visit_counts_plain`
-  replays either exit rule in torch.
+  use, bound with ``ctypes``).  Each of the row's four warps walks the list
+  on its own and votes its exit after every visit over its 32 lanes; the
+  closest visit bulk-copies each block into the warp's own ring in shared
+  memory, the occlusion visit reads it in place with an L1 prefetch.  On
+  the card K4 and K6 are one kernel, and K5 and K7 one (the TPU's two pairs
+  differ in where the matrix lives; a streaming fetch, one copy per
+  row-visit by a producer warp, lost to the per-warp fetch at every size
+  measured, PERF.md), so the routes differ only in the name their launches
+  are counted under.  :func:`visit_counts_plain` replays the exit rule in
+  torch, and every kernel counts its visits per warp, (B0, 4).
 - :func:`make_cluster_intersectors` picks the pair by the JAX package's
   rule (:func:`streams_by_budget`) and exposes it as ``.route``
   (``"resident"`` or ``"stream"``).
@@ -88,7 +91,8 @@ ROUTES = {
 HUGE_INV = float(np.float32(1.0e30))
 # The JAX package's packed block has PACK_W = 48 rows per cluster; its
 # streaming rule is stated on that layout, and the port keeps the rule so
-# both packages choose the same kernels for a scene.
+# both packages take the same route on the same scene (on the card both
+# routes launch the same two kernels, under their own launch counts).
 PACK_W = 48
 RESIDENT_BUDGET_BYTES = 72 * 1024 * 1024
 # Minimum cluster count for bounce compaction + spatial ray sorting
@@ -107,7 +111,7 @@ NO_ID = int(np.iinfo(np.int32).max)
 # Plain versions evaluate about this many (lane, box) or (lane, triangle)
 # pairs at a time, so their memory stays O(pairs).
 _PLAIN_PAIRS = 1 << 22
-# Warps of a 128-lane row: the resident kernels walk and count per warp.
+# Warps of a 128-lane row: the visit kernels walk and count per warp.
 WARPS = 4
 
 
@@ -374,8 +378,9 @@ def any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed):
 def _visit_walk(meta, ids, nears, cutoff, o3, d3, packed, tmax=None, excl=None,
                 lanes=LANE // WARPS, results=False):
     """The visit kernels' walks replayed in torch, group by group of
-    ``lanes`` lanes of a row (32: K4/K5, each warp on its own; 128: K6/K7,
-    the whole row).  A group visits the listed clusters in order while a
+    ``lanes`` lanes of a row (32: K4-K7, each warp on its own; 128: the
+    whole row walking together, the rule the per-row bound counts).  A
+    group visits the listed clusters in order while a
     vote after every visit finds a lane that can still improve (closest:
     best t >= the next near; occlusion: an open lane with tmax >= it), then
     sweeps all K clusters in identity order while one reaches the cutoff.
@@ -467,9 +472,10 @@ def _visit_walk(meta, ids, nears, cutoff, o3, d3, packed, tmax=None, excl=None,
 
 def visit_counts_plain(meta, ids, nears, cutoff, o3, d3, packed, tmax=None,
                        excl=None, lanes=LANE // WARPS):
-    """Clusters visited by each group of ``lanes`` lanes under the kernels'
-    exit rule (:func:`_visit_walk`): (B0, 4) int32 per warp as K4/K5 count
-    them (``lanes`` 32), (B0, 1) per row as K6/K7 do (``lanes`` 128).
+    """Clusters visited by each group of ``lanes`` lanes under the exit
+    rule (:func:`_visit_walk`): (B0, 4) int32 per warp as the visit kernels
+    K4-K7 count them (``lanes`` 32); (B0, 1) per row with ``lanes`` 128,
+    the rule of a row walking together (the per-row bound in PERF.md).
     ``tmax``/``excl`` None means the closest query, else occlusion."""
     return _visit_walk(meta, ids, nears, cutoff, o3, d3, packed, tmax, excl,
                        lanes)[0]
@@ -486,12 +492,13 @@ def build() -> tuple:
     returns ``(lib, info)`` as :func:`~chiaroscuro_tpu_torch.ops.
     intersect_cuda.build` does.  A failed build raises."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    closest, occlusion = [vp] * 8 + [ci] * 4 + [vp] * 7, [vp] * 9 + [ci] * 4 + [vp] * 3
     return bind("intersect_cluster", {
-        "closest_cluster_launch": closest, "any_cluster_launch": occlusion,
-        "closest_resident_launch": closest, "any_resident_launch": occlusion,
-        # Not a launch: K4's dynamic shared memory (bytes) at a given M.
-        "closest_resident_smem_bytes": [ci],
+        # The closest visits (K4 and K6) and the occlusion visits (K5, K7).
+        "closest_visits_launch": [vp] * 8 + [ci] * 4 + [vp] * 7,
+        "any_visits_launch": [vp] * 9 + [ci] * 4 + [vp] * 3,
+        # Not a launch: the closest visits' dynamic shared memory (bytes) a
+        # block at a given M.
+        "closest_visits_smem_bytes": [ci],
     })
 
 
@@ -513,24 +520,18 @@ def _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device):
     return B0, Le
 
 
-def _visits_shape(kernel, B0):
-    """The visit-count output: per warp (B0, 4) for K4/K5, per row (B0,)
-    for K6/K7."""
-    return (B0, WARPS) if kernel in ROUTES["resident"] else (B0,)
-
-
-def _cpu_visits(kernel, visits, B0, replay):
-    """Fill a CPU ``visits`` output from the exit rules' replay."""
+def _cpu_visits(visits, B0, replay):
+    """Fill a CPU ``visits`` output, (B0, 4) int32, from the replay of the
+    per-warp exit rule."""
     if visits is not None:
-        _check("visits", visits, _visits_shape(kernel, B0), torch.int32, visits.device)
-        lanes = LANE // WARPS if kernel in ROUTES["resident"] else LANE
-        visits.copy_(replay(lanes).reshape(visits.shape))
+        _check("visits", visits, (B0, WARPS), torch.int32, visits.device)
+        visits.copy_(replay())
 
 
-def _visits_ptr(kernel, visits, B0, device):
+def _visits_ptr(visits, B0, device):
     if visits is None:
         return None
-    _check("visits", visits, _visits_shape(kernel, B0), torch.int32, device)
+    _check("visits", visits, (B0, WARPS), torch.int32, device)
     return visits.data_ptr()
 
 
@@ -551,14 +552,13 @@ def _closest_visit(kernel, meta, ids, nears, cutoff, o3, d3, packed, attrs,
     B0, Le = _check_lists(meta, ids, nears, cutoff, o3, d3, packed, device)
     _check("attrs", attrs, (attrs.shape[0], ATTR_K), torch.float32, device)
     if device.type == "cpu":
-        _cpu_visits(kernel, visits, B0, lambda lanes: visit_counts_plain(
-            meta, ids, nears, cutoff, o3, d3, packed, lanes=lanes))
+        _cpu_visits(visits, B0, lambda: visit_counts_plain(
+            meta, ids, nears, cutoff, o3, d3, packed))
         return closest_cluster_plain(meta, ids, nears, cutoff, o3, d3, packed, attrs)
-    visits_ptr = _visits_ptr(kernel, visits, B0, device)
+    visits_ptr = _visits_ptr(visits, B0, device)
     if packed.data_ptr() % 16 or attrs.data_ptr() % 16:
         raise ValueError("packed and attrs must be 16-byte aligned")
     lib, _ = build()
-    launch = getattr(lib, kernel + "_launch")
     K, _, M = packed.shape
     t = torch.empty((B0, LANE), dtype=torch.float32, device=device)
     tid = torch.empty((B0, LANE), dtype=torch.int32, device=device)
@@ -567,7 +567,7 @@ def _closest_visit(kernel, meta, ids, nears, cutoff, o3, d3, packed, attrs,
     am = torch.empty((ATTR_K, B0, LANE), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(
+        err = lib.closest_visits_launch(
             meta.data_ptr(), ids.data_ptr(), nears.data_ptr(),
             cutoff.data_ptr(), o3.data_ptr(), d3.data_ptr(), packed.data_ptr(),
             attrs.data_ptr(), B0, Le, K, M, t.data_ptr(),
@@ -588,19 +588,18 @@ def _any_visit(kernel, meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
     _check("tmax", tmax, (B0, LANE), torch.float32, device)
     _check("excl", excl, (B0, LANE), torch.int32, device)
     if device.type == "cpu":
-        _cpu_visits(kernel, visits, B0, lambda lanes: visit_counts_plain(
-            meta, ids, nears, cutoff, o3, d3, packed, tmax, excl, lanes=lanes))
+        _cpu_visits(visits, B0, lambda: visit_counts_plain(
+            meta, ids, nears, cutoff, o3, d3, packed, tmax, excl))
         return any_cluster_plain(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed)
-    visits_ptr = _visits_ptr(kernel, visits, B0, device)
+    visits_ptr = _visits_ptr(visits, B0, device)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned")
     lib, _ = build()
-    launch = getattr(lib, kernel + "_launch")
     K, _, M = packed.shape
     occ = torch.empty((B0, LANE), dtype=torch.bool, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(
+        err = lib.any_visits_launch(
             meta.data_ptr(), ids.data_ptr(), nears.data_ptr(),
             cutoff.data_ptr(), o3.data_ptr(), d3.data_ptr(), tmax.data_ptr(),
             excl.data_ptr(), packed.data_ptr(), B0, Le, K, M,
@@ -615,7 +614,7 @@ def closest_resident(meta, ids, nears, cutoff, o3, d3, packed, attrs,
                      visits=None):
     """K4: closest hit of each planar ray over the row's listed clusters,
     each of the row's four warps walking the list on its own and
-    bulk-copying each visited block into its ring in shared memory.
+    bulk-copying each visited block into its own ring in shared memory.
 
     meta/ids/nears/cutoff: the cull's lists (:func:`cull`); o3, d3:
     (3, B0, 128) f32; packed: (K, 10, M) f32 (:func:`derive_buffers`);
@@ -630,9 +629,10 @@ def closest_resident(meta, ids, nears, cutoff, o3, d3, packed, attrs,
 
 def closest_cluster(meta, ids, nears, cutoff, o3, d3, packed, attrs,
                     visits=None):
-    """K6: :func:`closest_resident`'s function, the row's block walking the
-    list together, each visited block staged through shared memory
-    (``cp.async`` double buffer); ``visits`` is (B0,), one count a row."""
+    """K6, the streaming route's closest hit: on the card the same kernel
+    as :func:`closest_resident` (the JAX package's streaming twin computes
+    the same function), counted in ``LAUNCHES["closest_cluster"]``;
+    ``visits`` as there, (B0, 4)."""
     return _closest_visit("closest_cluster", meta, ids, nears, cutoff, o3,
                           d3, packed, attrs, visits)
 
@@ -651,9 +651,9 @@ def any_resident(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
 
 def any_cluster(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed,
                 visits=None):
-    """K7: :func:`any_resident`'s function with the row walking together
-    and each visited block staged through shared memory; ``visits`` as in
-    :func:`closest_cluster`."""
+    """K7, the streaming route's occlusion: on the card the same kernel as
+    :func:`any_resident`, counted in ``LAUNCHES["any_cluster"]``;
+    ``visits`` (B0, 4)."""
     return _any_visit("any_cluster", meta, ids, nears, cutoff, o3, d3, tmax,
                       excl, packed, visits)
 

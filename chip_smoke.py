@@ -15,42 +15,54 @@ raises, exits non-zero and prints no result line.
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
    Cornell (T = 36) and a seeded random soup (T = 4,096), B0 = 4,608 rows
    (one 768x768 wavefront) with a third of the rows dead: bitwise equal.
-2b. Streaming cluster kernels vs plain at the full atrium (481,208
-   triangles, K = 3,760 clusters of 128, streaming): the primary wavefront
-   of the 1280x720 ``ATRIUM_CAMERA`` frame (B0 = 7,200), one cosine-sampled
-   bounce wavefront from its hits and the NEE shadow wavefront, each sorted
-   as the integrator sorts it on this path.  K3 must equal its plain version
+2b. Cluster kernels vs plain at the full atrium (481,208 triangles,
+   K = 3,760 clusters of 128): the primary wavefront of the 1280x720
+   ``ATRIUM_CAMERA`` frame (B0 = 7,200), one cosine-sampled bounce
+   wavefront from its hits and the NEE shadow wavefront, each sorted as the
+   integrator sorts it on this path.  K3 must equal its plain version
    exactly on every row (closest and shadow queries): its sweep's hit mask
    and counts equal and keys bitwise, the lists with nears and cutoff
-   bitwise; K6/K7 must be bitwise equal to theirs on a seeded sample of
-   rows plus every row that overflowed its list.  X1 (the row-hit cull of the tool path) on every row of the
-   primary wavefront, without tmax and with tmax = each ray's closest hit:
+   bitwise; the scene's route, K6/K7, must be bitwise equal to theirs on a
+   seeded sample of rows plus every row that overflowed its list.  (On the
+   card K4 and K6 launch one kernel, and K5 and K7 one, each counted under
+   its own name: each wavefront checks and times its scene's route, and the
+   card tests check that each name launches.)  X1 (the row-hit cull of the
+   tool path) on every row of the primary wavefront, without tmax and with tmax = each ray's closest hit:
    exactly equal to its plain version and, sliced to K, to K3's hit mask;
    timed beside K3's sweep and the whole K3 cull on the same rays.  K3's
    sweep is also timed on 1 to 4 waves of resident blocks' worth of rows.
-2c. Resident cluster kernels at Sponza scale (``synthetic:atrium:262144``,
-   261,396 triangles, K = 2,043, resident by the JAX rule): the same four
-   wavefronts of its 1280x720 frame.  K3 exact on every row; K4/K5 bitwise
-   equal to the plain versions on a seeded row sample plus every overflow
-   row, and bitwise equal to K6/K7 on every row.  The same checks (every row) on
+2c. The same at Sponza scale (``synthetic:atrium:262144``, 261,396
+   triangles, K = 2,043): the same four wavefronts of its 1280x720 frame.
+   The same checks on its route, K4/K5; then on every row of
    atrium(2_200, seed=5) at M = 32 with 32-wide lists, most of whose rows
-   overflow, with every kernel's visit counts equal to the torch replay of
-   its exit rule (``cluster_cuda._visit_walk``: per warp for K4/K5, per
-   row for K6/K7).  Then the 19k frame's (``synthetic:atrium:19000``,
-   K = 148) primary and shadow wavefronts at 1024x1024 in pixel order, as
-   the integrator traces them there: K3 exact, the kernels bitwise on the
-   sample and against each other on every row.  X1 as in 2b on every row
-   of the 262k NEE shadow wavefront (with its tmax).
+   overflow, with the per-warp visit counts equal to the torch replay of
+   the exit rule (``cluster_cuda._visit_walk``).  Then the 19k frame's
+   (``synthetic:atrium:19000``, K = 148) primary and shadow wavefronts at
+   1024x1024 in pixel order, as the integrator traces them there.  X1 as
+   in 2b on every row of the 262k NEE shadow wavefront (with its tmax).
+2d. The streaming route's regime: ``synthetic:atrium:3000000`` (2,999,720
+   triangles, K = 23,436: a 114.4 MiB (K, 10, M) matrix, over twice the
+   card's L2), its 1280x720 primary and NEE shadow wavefronts.  K3 exact on
+   every row (the (B0, K) keys are ~675 MB; the peak device memory is
+   printed); its route, K6/K7, bitwise equal to the plain versions on
+   BIG3M_SAMPLE seeded rows plus at most BIG3M_SAMPLE seeded overflow rows
+   (the plain sweep of an overflow row covers all 23k clusters), the visit
+   counts equal to the replay on every row; timed on every row.  Its
+   bounce wavefront, where the 3M frame spends most of its time, is
+   counted (trip, overflow rows, visits a warp) and K6 timed on it
+   BOUNCE_3M_TURNS times with the spread, not held to the plain version.
 3. Cornell render: the CLI's batch render of ``scenes/cornell.rtc`` at its
    768x768 and k 6, at RENDER_SPP samples, into an EXR in a temporary
    directory that is read back; finite, non-trivial, one K1 and one K2
    launch per sample x bounce.  A 128x128, 4 spp, k 6 render on the card is
    held against the same render on the CPU (the plain versions).
-3b. Atrium render: the CLI renders ``synthetic:atrium`` (481k, streaming) at
+3b. Atrium render: the CLI renders ``synthetic:atrium`` (481k) at
    1280x720, 1 spp, k 3 with ``intersector auto`` and the ATRIUM_CAMERA view
    into an EXR that is read back: finite and lit (median over 4x4-pixel
-   block means of the per-pixel max > 1e-3), and route ``stream`` (2 K3, 1
-   K6 and 1 K7 launch per sample x bounce, no resident or dense launch).
+   block means of the per-pixel max > 1e-3), on the route ``stream`` (the
+   JAX package's rule, ``cluster_cuda.streams_by_budget``: 2 K3, 1 K6 and
+   1 K7 per sample x bounce, no other launch), with a torch.profiler
+   breakdown of one warm frame.
    Then atrium(2_200) at 160x90, 2 spp, k 2 through ``intersector
    cluster`` (resident by the rule, K4/K5) and again with ``stream=True``
    (K6/K7) on the card, each held against the CPU render, and the card's
@@ -64,16 +76,18 @@ raises, exits non-zero and prints no result line.
    and no dense launch; compaction on) and ``synthetic:atrium:19000`` at
    1024x1024, 1 spp, k 3 (the JAX bench's nanosuit shape; K = 148, no
    compaction), each with a torch.profiler breakdown of one warm frame.
+3d. ``synthetic:atrium:3000000`` at 1280x720, 1 spp, k 3 through
+   ``intersector auto`` (route ``stream``: 6 K3, 3 K6, 3 K7), as 3c.
 4. Timings (CUDA events, with the card's name and power limit): every
-   kernel vs its plain version in us per launch, K4/K5 beside K6/K7 on the
-   same lists and beside the row-vote K4/K5 they replaced (ROW_VOTE_US), with visits per
-   warp (K4/K5) or row (K6/K7), each held equal to the replay of its exit
-   rule, and the bounds of the tests each rule needs, per row and per warp
-   (the 256-row sample and, where K4/K5 run, every row; one replay of each
-   rule a wavefront, on every row there), K5's lane-test share; K3's sweep
-   and whole cull on
-   every wavefront, each with its bound, beside the Triton K3's times where
-   they were taken (TRITON_K3_US).
+   kernel vs its plain version in us per launch, the visits beside the
+   row-wide walks they replaced (REPLACED_US),
+   with visits per warp, held equal to one replay of the exit rule a
+   wavefront on every row, and the bounds of the tests the rule needs, per
+   warp (and for closest queries per row, a row's slowest warp), on the
+   256-row sample and on every row, the occlusion kernels' lane-test
+   share; K3's sweep and whole cull on every wavefront, each with its
+   bound, beside the Triton K3's times where they were taken
+   (TRITON_K3_US).
 5. Gradients (``render_samples`` + ``backward``, the intersectors rebuilt on
    the parameter-substituted scene): (i) the card's value and gradients of
    the mean image w.r.t. kd, ke (and tri_v0 on Cornell, tex_data on the
@@ -99,7 +113,8 @@ The line before the last is a JSON object of the kernels: for each, the
 launches of its path (K1-K7: the main-path CLI runs, counts set to 0 before
 each run and read after it, summed over the runs; X1/X2: phase 6), its
 largest |kernel - plain|, its time (X2 and its library call: kernel time by
-torch.profiler) and its plain version's on the stated inputs, and the
+torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
+ones') and its plain version's on the stated inputs, and the
 bound: the larger of the FP32 operations those inputs need (visits counted
 by the replay of the per-warp exit rule; occlusion lanes tested only up to
 their first blocker) over the
@@ -128,9 +143,12 @@ RENDER_SPP = 16
 RENDER_K = 6
 ATRIUM_RES = (1280, 720)   # the bench's sponza-scale headline frame
 ATRIUM_K = 3
-MID_TRIS = 262_144         # synthetic:atrium:262144, resident by the JAX rule
+MID_TRIS = 262_144         # synthetic:atrium:262144
 NANO_TRIS = 19_000         # synthetic:atrium:19000, the nanosuit scale
+BIG3M_TRIS = 3_000_000     # synthetic:atrium:3000000, the JAX bench's atrium3m
+BIG3M_SAMPLE = 32          # seeded 3M rows (and at most as many overflow rows) vs plain
 ROW_SAMPLE = 256           # seeded rows for the plain visit comparisons
+BOUNCE_3M_TURNS = 6        # single timed launches of K6 on the 3M bounce wavefront
 SMALL_LMAX = 32            # lists short enough that most atrium(2_200) rows overflow
 PIXEL_ORDER_LMAX = 512     # list width for the pixel-order bounce block
 NANO_RES = (1024, 1024)    # the 19k frame, bench.py's nanosuit shape
@@ -162,15 +180,19 @@ TRITON_K3_US = {("atrium 481k", "primary"): (10027.9, 11397.2),
                 ("atrium:262144", "primary"): (None, 7566.4),
                 ("atrium:262144", "shadow"): (6845.6, 7787.0)}
 
-# us of the row-vote K4/K5 that the warp-owned walks replaced (blocks read
-# in place, a row-wide exit vote every 8 visits) on the same seeded
-# wavefronts, (256-row sample, all rows), NVIDIA H100 80GB HBM3 at
-# 700.00 W, by this script; the 19k wavefronts were not timed then.
-ROW_VOTE_US = {
+# us of the row-wide walks that the warp-owned walks replaced on the same
+# seeded wavefronts, (256-row sample or None where not timed, all rows),
+# NVIDIA H100 80GB HBM3 at 700.00 W, by this script: K4/K5 before their
+# redesign (blocks read in place, a row-wide exit vote every 8 visits),
+# K6/K7 before theirs (the block walking together, a block-wide vote after
+# every visit, blocks staged through a two-slot cp.async buffer).
+REPLACED_US = {
     ("closest_resident", "atrium:262144", "primary"): (2869.6, 15639.8),
     ("closest_resident", "atrium:262144", "bounce"): (12740.2, 69220.3),
     ("closest_resident", "atrium:262144", "bounce in pixel order"): (79642.5, 79633.7),
     ("any_resident", "atrium:262144", "shadow"): (4290.4, 21488.6),
+    ("closest_cluster", "atrium 481k", "primary"): (2617.9, 14344.6),
+    ("any_cluster", "atrium 481k", "shadow"): (7259.4, 23120.7),
 }
 
 KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
@@ -383,7 +405,7 @@ def cam_tokens(cam):
 # ---------------------------------------------------------------------------
 
 
-def atrium_wavefronts(scene, xres, yres, dev, sorted_=True):
+def atrium_wavefronts(scene, xres, yres, dev, sorted_=True, clusters=None):
     """The frame's primary wavefront in pixel order, the first bounce from
     its hits (cosine-sampled with the port's samplers, sorted by the
     integrator's spatial key as the cluster path sorts it, dead lanes
@@ -394,7 +416,7 @@ def atrium_wavefronts(scene, xres, yres, dev, sorted_=True):
     sorts) the primary and the shadow wavefront, both in pixel order.
     Returns {name: (o3, d3, tmax or None, excl or None)}, the primary hit
     share and the primary closest-hit distances (B0, 128) (BIG where a ray
-    missed)."""
+    missed).  ``clusters``: the scene's prebuilt decomposition, if any."""
     from chiaroscuro_tpu_torch.geometry import planar as P
     from chiaroscuro_tpu_torch.geometry.camera import camera_basis, primary_ray_dirs_planar
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
@@ -414,7 +436,7 @@ def atrium_wavefronts(scene, xres, yres, dev, sorted_=True):
                                  jx, jy).contiguous()
     o3 = torch.tensor(cam["eye"], dtype=torch.float32, device=dev)[:, None, None]
     o3 = o3.expand((3,) + B).contiguous()
-    cf, _ = cc.make_cluster_intersectors(scene, stream=True)
+    cf, _ = cc.make_cluster_intersectors(scene, stream=True, clusters=clusters)
     res = cf.planar_fn(o3, d3)
     hit, A = res.hit, res.attrs
     w = 1.0 - res.u - res.v
@@ -482,12 +504,6 @@ def take_rows(x, rows):
     return x[..., rows, :] if x.dim() == 3 else x[rows]
 
 
-def visit_kernels(cc, routes, closest):
-    """The routes' visit kernels, closest or occlusion: K4 or K5 for
-    ``resident``, K6 or K7 for ``stream``."""
-    return [cc.ROUTES[r][0 if closest else 1] for r in routes]
-
-
 def run_visit(cc, kernel, lists, o3, d3, tmax, excl, packed, attrs, visits=None):
     if tmax is None:
         return cc._closest_visit(kernel, *lists, o3, d3, packed, attrs, visits)
@@ -495,16 +511,16 @@ def run_visit(cc, kernel, lists, o3, d3, tmax, excl, packed, attrs, visits=None)
 
 
 def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_rows,
-                    routes):
+                    route, sample=ROW_SAMPLE, max_overflow=None):
     """K3 exact on every row (its sweep's hit mask and counts equal, keys
-    bitwise and never -0.0; the lists, nears and cutoff bitwise); each
+    bitwise and never -0.0; the lists, nears and cutoff bitwise); the
     route's visit kernels (K4/K5 resident, K6/K7 stream) bitwise equal to
     the plain versions on a row sample (every row when ``all_rows``; else
-    ROW_SAMPLE seeded rows plus every overflow row), and every kernel
-    bitwise equal to the first on every row.  Returns the largest
-    |kernel - plain| per kernel, the compared inputs for the timings, and
-    the number of overflow rows compared."""
-    errs = {"cull": 0.0, **{k: 0.0 for r in routes for k in cc.ROUTES[r]}}
+    ``sample`` seeded rows plus every overflow row, or ``max_overflow``
+    seeded ones of them).  Returns the largest |kernel - plain| per kernel,
+    the compared inputs for the timings, and the number of overflow rows
+    compared."""
+    errs = {"cull": 0.0, **dict.fromkeys(cc.ROUTES[route], 0.0)}
     inputs = {}
     n_overflow_sampled = 0
     for wname, (o3, d3, tmax, excl, *le) in waves.items():
@@ -528,14 +544,17 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
         if all_rows:
             rows = torch.arange(nB0, device=o3.device)
         else:
-            pick = torch.from_numpy(rng.choice(nB0, min(ROW_SAMPLE, nB0), replace=False))
+            pick = torch.from_numpy(rng.choice(nB0, min(sample, nB0), replace=False))
+            if max_overflow is not None and overflow.numel() > max_overflow:
+                keep = rng.choice(overflow.numel(), max_overflow, replace=False)
+                overflow = overflow[torch.from_numpy(keep).to(o3.device)]
             rows = torch.unique(torch.cat([pick.to(o3.device), overflow]))
         n_overflow_sampled += int(meta[rows, 1].sum())
         sub = tuple(x[rows].contiguous() for x in lists)
         so3, sd3 = o3[:, rows].contiguous(), d3[:, rows].contiguous()
         closest = tmax is None
-        kernels = visit_kernels(cc, routes, closest)
-        outs = {k: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs) for k in kernels}
+        k = cc.ROUTES[route][0 if closest else 1]
+        out = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs)
         if closest:
             want = cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs)
             fields = ("t", "id", "u", "v", "attrs")
@@ -545,34 +564,23 @@ def compare_cluster(cc, name, waves, bmin, bmax, Le, packed, attrs, rng, all_row
             fields = ("occluded",)
         sync()
         bad = []
-        first = kernels[0]
-        for k in kernels:
-            got = outs[k] if closest else (outs[k],)
-            for f, a, b in zip(fields, got, want):
-                a = take_rows(a, rows)
-                if not torch.equal(bits(a), bits(b)):
-                    bad.append(f"{KERNEL_IDS[k]} {f} vs plain")
-                errs[k] = max(errs[k], max_err(a.float(), b.float()))
-            if k != first:
-                ref = outs[first] if closest else (outs[first],)
-                for f, a, b in zip(fields, got, ref):
-                    if not torch.equal(bits(a), bits(b)):
-                        bad.append(f"{f}: {KERNEL_IDS[k]} vs {KERNEL_IDS[first]}")
-        out0 = outs[first]
-        share = float((out0[0] < cc.BIG).float().mean()) if closest else float(out0.float().mean())
+        for f, a, b in zip(fields, out if closest else (out,), want):
+            a = take_rows(a, rows)
+            if not torch.equal(bits(a), bits(b)):
+                bad.append(f"{KERNEL_IDS[k]} {f} vs plain")
+            errs[k] = max(errs[k], max_err(a.float(), b.float()))
+        share = float((out[0] < cc.BIG).float().mean()) if closest else float(out.float().mean())
         trip = meta[:, 0].float()
-        ids = "/".join(KERNEL_IDS[k] for k in kernels)
-        vs = (f"; {ids} against each other on all {nB0} rows" if len(kernels) > 1 else "")
         print(f"[cluster] {name}/{wname}: B0={nB0} Le={wle} K3 hit (row, box) pairs "
               f"{int(sweep[0].sum())}, {zero_boxes} of them at entry +0.0; trip p50={float(trip.median())} "
               f"max={int(meta[:, 0].max())} overflow share={float(meta[:, 1].float().mean()):.5f} "
-              f"({overflow.numel()} rows); {ids} vs plain on "
-              f"{rows.numel()} rows ({int(meta[rows, 1].sum())} overflow){vs}: "
+              f"({int(meta[:, 1].sum())} rows); {KERNEL_IDS[k]} vs plain on "
+              f"{rows.numel()} rows ({int(meta[rows, 1].sum())} overflow): "
               f"{'hit' if closest else 'occluded'} share {share:.4f}, mismatched={bad or 'none'}")
         if bad:
             raise AssertionError(f"{name}/{wname}: {bad}")
         inputs[wname] = (o3, d3, tmax, excl, lists, wle)
-    ids = "/".join(KERNEL_IDS[k] for r in routes for k in cc.ROUTES[r])
+    ids = "/".join(KERNEL_IDS[k] for k in cc.ROUTES[route])
     print(f"[cluster] {name}: K3 equals plain on every row (keys bitwise); {ids} bitwise on the samples "
           f"({n_overflow_sampled} overflow rows among them)")
     return errs, inputs, n_overflow_sampled
@@ -596,46 +604,30 @@ def visit_bound(lists, o3, tmax, packed, visits, tests, hit_tris):
     return bound(MT_OPS * int(tests.sum()), nbytes)
 
 
-def replay_visits(cc, lists, o3, d3, tmax, excl, packed, kernel_visits, first_out,
-                  warp=True):
-    """The visit kernels' exit rules replayed in torch on the card
-    (``cluster_cuda._visit_walk``) on the rows given: per warp (K4/K5's
-    rule) and per row (K6/K7's).  A row's walk visits what its slowest warp
-    visits (a warp stops early only when none of its lanes wants a later box
-    of the list or the sweep: the nears ascend and the cutoff is at least
-    every listed near), so a closest query's per-row counts are the per-warp
-    maximum, and its tests every lane against each visited triangle; an
-    occlusion query's per-row tests stop at each lane's first blocker in the
-    row's visit order, which takes a replay of its own.  Every kernel's
-    visit counts must equal the replay of its rule exactly ({kernel: counts};
-    (B0, 4) per warp, (B0,) per row), and the replay's answer the kernels'
-    (``first_out``).  Without ``warp`` (the streaming pair alone) only the
-    per-row rule is replayed, and a closest query's per-row counts are the
-    kernel's own.  Returns {"warp"/"row": (visits, tests)}, each (B0, G) per
-    group of the rule."""
-    out, replays = {}, []
-    if warp:
-        warp_v, warp_t, state = cc._visit_walk(*lists, o3, d3, packed, tmax, excl, lanes=32)
-        replays.append(("warp", state))
-        out["warp"] = (warp_v, warp_t)
+def replay_visits(cc, lists, o3, d3, tmax, excl, packed, kernel_visits, first_out):
+    """The visit kernels' exit rule replayed in torch on the card
+    (``cluster_cuda._visit_walk``, per warp) on the rows given.  Every
+    kernel's (B0, 4) visit counts must equal the replay exactly
+    ({kernel: counts}), and the replay's answer the kernels'
+    (``first_out``).  For a closest query the per-row rule (a row walking
+    together, the earlier per-row bound) comes for free: a row's walk visits
+    what its slowest warp visits (a warp stops early only when none of its
+    lanes wants a later box of the list or the sweep: the nears ascend and
+    the cutoff is at least every listed near), each visit testing every
+    lane against each triangle; an occlusion query's per-row tests would
+    take a replay of their own and are not replayed.  Returns
+    {"warp"/"row": (visits, tests)}, each (B0, G) per group of the rule."""
+    warp_v, warp_t, state = cc._visit_walk(*lists, o3, d3, packed, tmax, excl, lanes=32)
+    out = {"warp": (warp_v, warp_t)}
     if tmax is None:
-        row_v = warp_v.amax(1, keepdim=True) if warp else \
-            next(c for c in kernel_visits.values() if c.dim() == 1)[:, None]
-        row_t = row_v.long() * 128 * packed.shape[2]
-    else:
-        row_v, row_t, row_state = cc._visit_walk(*lists, o3, d3, packed, tmax, excl, lanes=128)
-        replays.append(("row", row_state))
-        if warp and not torch.equal(row_v[:, 0], warp_v.amax(1)):
-            raise AssertionError("the per-row replay does not visit what its slowest warp does")
-    out["row"] = (row_v, row_t)
-    for gran, st in replays:
-        same = torch.equal(bits(st[0]), bits(first_out[0])) if tmax is None \
-            else torch.equal(st, first_out)
-        if not same:
-            raise AssertionError(f"the per-{gran} replay does not reproduce the kernels' answer")
+        row_v = warp_v.amax(1, keepdim=True)
+        out["row"] = (row_v, row_v.long() * 128 * packed.shape[2])
+    same = torch.equal(bits(state[0]), bits(first_out[0])) if tmax is None \
+        else torch.equal(state, first_out)
+    if not same:
+        raise AssertionError("the per-warp replay does not reproduce the kernels' answer")
     for k, counts in kernel_visits.items():
-        want = out["warp" if counts.dim() == 2 else "row"][0]
-        if not torch.equal(counts, want.reshape(counts.shape)):
+        if not torch.equal(counts, warp_v):
             raise AssertionError(f"{KERNEL_IDS[k]}: visit counts differ from the replay of its rule")
     return out
 
@@ -660,34 +652,29 @@ def replay_bounds(cc, lists, o3, tmax, packed, replay, first_out, rows=None):
     return out
 
 
-def check_visits(cc, name, inputs, packed, attrs):
-    """Every row of each wavefront: the visit counts of K4/K5 and K6/K7
-    against the replay of their exit rules."""
+def check_visits(cc, name, inputs, packed, attrs, route):
+    """Every row of each wavefront: the per-warp visit counts of the
+    route's visit kernels against the replay of the exit rule."""
     for wname, (o3, d3, tmax, excl, lists, _) in inputs.items():
-        kernels = visit_kernels(cc, ("resident", "stream"), tmax is None)
-        counts, outs = {}, {}
-        for k in kernels:
-            per = (cc.WARPS,) if k in cc.ROUTES["resident"] else ()
-            counts[k] = torch.zeros((o3.shape[1],) + per, dtype=torch.int32, device=o3.device)
-            outs[k] = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=counts[k])
-        replay_visits(cc, lists, o3, d3, tmax, excl, packed, counts, outs[kernels[0]])
-        print(f"[cluster] {name}/{wname}: visit counts of "
-              f"{'/'.join(KERNEL_IDS[k] for k in kernels)} equal the replay on every row "
-              f"({int(counts[kernels[0]].sum())} warp visits, "
-              f"{int(counts[kernels[-1]].sum())} row visits)")
+        k = cc.ROUTES[route][0 if tmax is None else 1]
+        counts = torch.zeros((o3.shape[1], cc.WARPS), dtype=torch.int32, device=o3.device)
+        out = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=counts)
+        replay_visits(cc, lists, o3, d3, tmax, excl, packed, {k: counts}, out)
+        print(f"[cluster] {name}/{wname}: visit counts of {KERNEL_IDS[k]} equal the replay "
+              f"on every row ({int(counts.sum())} warp visits)")
 
 
-def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
+def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, route, plain_cull=True):
     """For each wavefront: K3's whole cull and its sweep alone on every row
-    (against its plain version) and each route's visit kernels on ROW_SAMPLE
-    seeded rows against the plain version, in turns; the kernels also on
-    every row.  Each kernel's visit counts on the sample and on every row,
-    and the bounds: where the resident kernels run, per row and per warp of
-    every row and of the sample, from one :func:`replay_visits` on every
-    row (a row's walk does not depend on the other rows); for the streaming
-    pair alone, its own per-row rule's on the sample."""
+    (against its plain version where ``plain_cull``) and the route's visit
+    kernel on ROW_SAMPLE seeded rows, in turns, against the plain version
+    on the primary and shadow wavefronts (the bounce ones' plain sweeps
+    take seconds and are checked, not timed); the kernel also on every
+    row.  Its per-warp visit counts on the sample and on every row, held to
+    one :func:`replay_visits` on every row (a row's walk does not depend on
+    the other rows), and the bounds per warp (and, for closest queries, per
+    row) of every row and of the sample."""
     timings = {}
-    all_rows = "resident" in routes
     for wname, (o3, d3, tmax, excl, lists, wle) in inputs.items():
         dev = o3.device
         nB0 = o3.shape[1]
@@ -697,76 +684,90 @@ def time_cluster(cc, inputs, bmin, bmax, packed, attrs, rng, routes):
         stm = sex = None
         if tmax is not None:
             stm, sex = tmax[pick].contiguous(), excl[pick].contiguous()
-        k3 = time_turns({
-            "plain": lambda: cc.cull_plain(o3, d3, bmin, bmax, wle, tmax=tmax),
-            "cull": lambda: cc.cull(o3, d3, bmin, bmax, wle, tmax=tmax),
-            "sweep": lambda: cc.cull_sweep(o3, d3, bmin, bmax, tmax),
-        }, {"plain": 1, "cull": 10, "sweep": 10})
+        k3_fns = {"cull": lambda: cc.cull(o3, d3, bmin, bmax, wle, tmax=tmax),
+                  "sweep": lambda: cc.cull_sweep(o3, d3, bmin, bmax, tmax)}
+        if plain_cull:
+            k3_fns = {"plain": lambda: cc.cull_plain(o3, d3, bmin, bmax, wle, tmax=tmax),
+                      **k3_fns}
+        k3 = time_turns(k3_fns, {"plain": 1, "cull": 10, "sweep": 10})
         K = bmin.shape[0]
         ops = (CULL_OPS + (tmax is not None)) * nB0 * 128 * K
         # Rays and boxes read once; the lists (whole cull) or the keys and
         # counts (sweep) written once.
         reads = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + K * 24
+        no_plain = (None, (None, None))
         timings[("cull", wname)] = dict(
-            us=k3["cull"][0], turns=k3["cull"][1], plain_us=k3["plain"][0],
-            plain_turns=k3["plain"][1], sweep_us=k3["sweep"][0], sweep_turns=k3["sweep"][1],
+            us=k3["cull"][0], turns=k3["cull"][1], plain_us=k3.get("plain", no_plain)[0],
+            plain_turns=k3.get("plain", no_plain)[1], sweep_us=k3["sweep"][0],
+            sweep_turns=k3["sweep"][1],
             bound=bound(ops, reads + nB0 * (12 + 8 * wle)),
             sweep_bound=bound(ops, reads + nB0 * (4 + 4 * K)), rows=nB0)
         closest = tmax is None
-        kernels = visit_kernels(cc, routes, closest)
-        fns = {"plain": (lambda: cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs))
-               if closest else
-               (lambda: cc.any_cluster_plain(*sub, so3, sd3, stm, sex, packed))}
-        for k in kernels:
-            fns[k] = (lambda k=k: run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs))
+        k = cc.ROUTES[route][0 if closest else 1]
+        fns = {}
+        if wname in ("primary", "shadow"):
+            fns["plain"] = (lambda: cc.closest_cluster_plain(*sub, so3, sd3, packed, attrs)) \
+                if closest else (lambda: cc.any_cluster_plain(*sub, so3, sd3, stm, sex, packed))
+        fns[k] = lambda: run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs)
         sample_t = time_turns(fns, {n: (1 if n == "plain" else 10) for n in fns})
         full_t = time_turns(
-            {k: (lambda k=k: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs))
-             for k in kernels}, dict.fromkeys(kernels, 10))
-        visits = {}
-        for k in kernels:
-            per = (cc.WARPS,) if k in cc.ROUTES["resident"] else ()
-            vs = torch.zeros((so3.shape[1],) + per, dtype=torch.int32, device=dev)
-            va = torch.zeros((nB0,) + per, dtype=torch.int32, device=dev)
-            out = run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs, visits=vs)
-            out_all = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=va)
-            if not torch.equal(vs, va[pick]):
-                raise AssertionError(f"{KERNEL_IDS[k]} {wname}: the sample's visit counts "
-                                     "differ from those of its rows in the every-row launch")
-            visits[k] = (vs, va, out, out_all)
-        first = kernels[0]
-        if all_rows:
-            replay = replay_visits(cc, lists, o3, d3, tmax, excl, packed,
-                                   {k: v[1] for k, v in visits.items()}, visits[first][3])
-            bounds = {
-                "sample": replay_bounds(cc, lists, o3, tmax, packed, replay, visits[first][3],
-                                        pick),
-                "all": replay_bounds(cc, lists, o3, tmax, packed, replay, visits[first][3]),
-            }
-        else:
-            replay = replay_visits(cc, sub, so3, sd3, stm, sex, packed,
-                                   {k: v[0] for k, v in visits.items()}, visits[first][2],
-                                   warp=False)
-            bounds = {"sample": replay_bounds(cc, sub, so3, stm, packed, replay,
-                                              visits[first][2])}
+            {k: lambda: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs)}, {k: 10})
+        vs = torch.zeros((so3.shape[1], cc.WARPS), dtype=torch.int32, device=dev)
+        va = torch.zeros((nB0, cc.WARPS), dtype=torch.int32, device=dev)
+        run_visit(cc, k, sub, so3, sd3, stm, sex, packed, attrs, visits=vs)
+        out_all = run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=va)
+        if not torch.equal(vs, va[pick]):
+            raise AssertionError(f"{KERNEL_IDS[k]} {wname}: the sample's visit counts "
+                                 "differ from those of its rows in the every-row launch")
+        replay = replay_visits(cc, lists, o3, d3, tmax, excl, packed, {k: va}, out_all)
+        bounds = {
+            "sample": replay_bounds(cc, lists, o3, tmax, packed, replay, out_all, pick),
+            "all": replay_bounds(cc, lists, o3, tmax, packed, replay, out_all),
+        }
         M = packed.shape[2]
-        # The finest rule replayed, on the most rows: (name, lanes a group).
-        gran, lanes = ("warp", 32) if all_rows else ("row", 128)
-        widest = bounds.get("all", bounds["sample"])[gran]
-        for k in kernels:
-            vs, va, _, _ = visits[k]
-            timings[(k, wname)] = dict(
-                us=sample_t[k][0], turns=sample_t[k][1], plain_us=sample_t["plain"][0],
-                plain_turns=sample_t["plain"][1], full_us=full_t[k][0],
-                full_turns=full_t[k][1], visits_sample=int(vs.sum()),
-                visits_all=int(va.sum()), per_warp=vs.dim() == 2,
-                bounds={(rows, g): b for rows, by in bounds.items() for g, b in by.items()},
-                bound=bounds["sample"][gran][0], rows=nB0, gran=gran,
-                # Tests the finest bound needs over those its groups ran.
-                test_share=widest[1] / (lanes * M * widest[2]))
+        widest = bounds["all"]["warp"]
+        timings[(k, wname)] = dict(
+            us=sample_t[k][0], turns=sample_t[k][1],
+            plain_us=sample_t.get("plain", no_plain)[0],
+            plain_turns=sample_t.get("plain", no_plain)[1], full_us=full_t[k][0],
+            full_turns=full_t[k][1], visits_sample=int(vs.sum()),
+            visits_all=int(va.sum()),
+            bounds={(rows, g): b for rows, by in bounds.items() for g, b in by.items()},
+            bound=bounds["sample"]["warp"][0], all_bound=bounds["all"]["warp"][0],
+            rows=nB0,
+            # Tests the per-warp bound needs over those its warps ran.
+            test_share=widest[1] / (32 * M * widest[2]))
         timings[("rows", wname)] = (nB0, wle, float(lists[0][:, 0].float().median()),
                                     float(sub[0][:, 0].float().median()))
     return timings
+
+
+def bounce_3m(cc, card, o3, d3, bmin, bmax, packed, attrs):
+    """The 3M frame's bounce wavefront, where its closest visits spend most
+    of the frame: K6, the scene's route, counted and then timed on every
+    row, BOUNCE_3M_TURNS launches one at a time with their spread (its
+    overflow rows' plain sweeps and walk replays over 23k clusters would
+    take minutes, so it is not held to the plain version here).  Prints the
+    rows that overflow their list and the per-warp visits of overflow and
+    other rows."""
+    lists = cc.cull(o3, d3, bmin, bmax, min(cc.DEFAULT_LMAX, bmin.shape[0]))
+    visits = torch.zeros((o3.shape[1], cc.WARPS), dtype=torch.int32, device=o3.device)
+    cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=visits)
+    sync()
+    us = [time_us(lambda: cc.closest_cluster(*lists, o3, d3, packed, attrs), 1)
+          for _ in range(BOUNCE_3M_TURNS)]
+    mean = sum(us) / len(us)
+    over = lists[0][:, 1].bool()
+    trip = lists[0][:, 0].float()
+    per_warp = visits.float()
+    print(f"[timing] {card}: 3M bounce B0={o3.shape[1]}: trip p50 {float(trip.median())}, "
+          f"overflow rows {int(over.sum())} ({float(over.float().mean()):.4f}); warp visits "
+          f"mean {float(per_warp.mean()):.2f}, on overflow rows "
+          f"{float(per_warp[over].mean()) if bool(over.any()) else 0.0:.2f} "
+          f"({int(visits[over].sum())} of {int(visits.sum())}); K6 on all rows {mean:.1f} us "
+          f"over {len(us)} launches (min {min(us):.1f}, max {max(us):.1f}, spread "
+          f"{(max(us) - min(us)) / mean:.4f} of the mean): "
+          + ", ".join(f"{u:.1f}" for u in us))
 
 
 def k3_waves(cc, card, o3, d3, bmin, bmax):
@@ -839,49 +840,53 @@ def print_cluster_timings(card, scene_name, ctimings):
             tri = TRITON_K3_US.get((scene_name, wname))
             tri = "" if tri is None else "; the Triton K3 it replaced: sweep {}, cull {} us".format(
                 *("not timed" if x is None else x for x in tri))
+            plain = "not timed" if val["plain_us"] is None else (
+                f"{val['plain_us']:.1f} us (turns {val['plain_turns'][0]:.1f}, "
+                f"{val['plain_turns'][1]:.1f})")
             print(f"[timing] {card}: K3 {scene_name} {wname} B0={val['rows']}: sweep "
                   f"{val['sweep_us']:.1f} us (turns {val['sweep_turns'][0]:.1f}, "
                   f"{val['sweep_turns'][1]:.1f}), bound {s_ms * 1e3:.1f} us ({s_by}); whole cull "
                   f"{val['us']:.1f} us (turns {val['turns'][0]:.1f}, {val['turns'][1]:.1f}), "
-                  f"bound {b_ms * 1e3:.1f} us ({b_by}); plain {val['plain_us']:.1f} us (turns "
-                  f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}){tri}")
+                  f"bound {b_ms * 1e3:.1f} us ({b_by}); plain {plain}{tri}")
             continue
         bd = val["bounds"]
 
         def bounds_text(rows):
-            if (rows, "row") not in bd:
-                return "not replayed on every row"
             return ", ".join(
                 f"per {g} {bd[(rows, g)][0][0] * 1e3:.1f} us ({bd[(rows, g)][0][1]}, "
                 f"{bd[(rows, g)][1]} lane-triangle tests)" for g in ("row", "warp")
                 if (rows, g) in bd)
 
-        unit = "warp" if val["per_warp"] else "row"
-        n_units = val["rows"] * (4 if val["per_warp"] else 1)
-        old = ROW_VOTE_US.get((label, scene_name, wname))
-        old = "" if old is None else f"; the row-vote design: {old[0]} us on its sample, {old[1]} on all"
-        g = val["gran"]
+        old = REPLACED_US.get((label, scene_name, wname))
+        old = "" if old is None else \
+            f"; the row-wide walk it replaced: {old[0] or 'not timed'} us on its sample, {old[1]} on all"
         share = "" if label.startswith("closest") else \
-            (f"; lane-test share {val['test_share']:.4f} (per-{g} bound's tests / "
-             f"{32 if g == 'warp' else 128} x M x {g} visits)")
+            (f"; lane-test share {val['test_share']:.4f} (per-warp bound's tests / "
+             "32 x M x warp visits)")
+        plain = "not timed" if val["plain_us"] is None else (
+            f"{val['plain_us']:.1f} us (turns {val['plain_turns'][0]:.1f}, "
+            f"{val['plain_turns'][1]:.1f})")
         print(f"[timing] {card}: {KERNEL_IDS[label]} {label} {scene_name} {wname}, "
               f"sample of {ROW_SAMPLE} "
               f"rows: kernel {val['us']:.1f} us (turns {val['turns'][0]:.1f}, "
-              f"{val['turns'][1]:.1f}), plain {val['plain_us']:.1f} us (turns "
-              f"{val['plain_turns'][0]:.1f}, {val['plain_turns'][1]:.1f}), "
-              f"{val['visits_sample']} {unit} visits, bounds {bounds_text('sample')}; all "
+              f"{val['turns'][1]:.1f}), plain {plain}, "
+              f"{val['visits_sample']} warp visits, bounds {bounds_text('sample')}; all "
               f"{val['rows']} rows: {val['full_us']:.1f} us (turns {val['full_turns'][0]:.1f}, "
-              f"{val['full_turns'][1]:.1f}), {val['visits_all']} {unit} visits "
-              f"({val['visits_all'] / n_units:.2f} per {unit}), bounds {bounds_text('all')}"
-              f"{old}{share}")
-    # The resident kernels against the streaming ones on the same lists.
-    for (label, wname), val in ctimings.items():
-        stream = "closest_cluster" if label.startswith("closest") else "any_cluster"
-        other = ctimings.get((stream, wname))
-        if label in ("closest_resident", "any_resident") and other is not None:
-            print(f"[timing] {card}: {scene_name} {wname} all rows: {KERNEL_IDS[label]} / "
-                  f"{KERNEL_IDS[stream]} {val['full_us'] / other['full_us']:.3f} "
-                  f"(sample {val['us'] / other['us']:.3f})")
+              f"{val['full_turns'][1]:.1f}), {val['visits_all']} warp visits "
+              f"({val['visits_all'] / (4 * val['rows']):.2f} per warp), bounds "
+              f"{bounds_text('all')}{old}{share}")
+
+
+def route_launches(cc, route):
+    """The launches of one 1-spp, k 3 frame on the cluster path: two culls
+    and one visit of each kind a bounce, on the route's pair."""
+    closest, occlusion = cc.ROUTES[route]
+    return {"cull": 2 * ATRIUM_K, closest: ATRIUM_K, occlusion: ATRIUM_K}
+
+
+def route_of(cc, K, M):
+    """The route the JAX package's rule gives a scene's clusters."""
+    return "stream" if cc.streams_by_budget(K, M) else "resident"
 
 
 def cli_render(cli, repo, counts, tokens, out_name):
@@ -971,14 +976,10 @@ def profile(fn, label, card):
         n_kernels += e.count
         if "cull_rows_kernel" in name:
             layer = "K3 cull_rows"
-        elif "closest_resident_kernel" in name:
-            layer = "K4 closest_resident"
-        elif "any_resident_kernel" in name:
-            layer = "K5 any_resident"
-        elif "closest_cluster_kernel" in name:
-            layer = "K6 closest_cluster"
-        elif "any_cluster_kernel" in name:
-            layer = "K7 any_cluster"
+        elif "closest_visits_kernel" in name:
+            layer = "K4/K6 closest_visits"
+        elif "any_visits_kernel" in name:
+            layer = "K5/K7 any_visits"
         elif "closest_dense_kernel" in name:
             layer = "K1 closest_dense"
         elif "any_dense_kernel" in name:
@@ -1177,13 +1178,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
     sass_mix(cc.build_cull()[1]["path"], "cull_rows_kernel", CULL_CHUNK)
-    # The resident visits at M = 128: the visit is inlined twice (phase 1
-    # and phase 2), each an unrolled loop body of 8 triangles (two
-    # 4-triangle loads), so counts / 16 approximate the instructions a
-    # triangle (the walk adds a few).
+    # The visits at M = 128: the visit is inlined twice (phase 1 and phase
+    # 2), each an unrolled loop body of 8 triangles (two 4-triangle loads),
+    # so counts / 16 approximate the instructions a triangle (the walk adds
+    # a few).
     sass_mix(cc.build()[1]["path"], "ILi128E", 16, "triangle (2 inlined visits x 8)")
-    print(f"[build] K4 at M = 128: {cc.build()[0].closest_resident_smem_bytes(128)} B of "
-          "dynamic shared memory a block (its warps' rings and mbarriers); K5 none")
+    print(f"[build] K4/K6 at M = 128: {cc.build()[0].closest_visits_smem_bytes(128)} B of "
+          "dynamic shared memory a block (its warps' rings and mbarriers); K5/K7 none")
 
     lap("phase 1")
     # --- phase 2: dense kernels vs plain ---------------------------------------
@@ -1219,21 +1220,20 @@ def main() -> int:
     sync()
     t_clusters = time.perf_counter() - t0
     Le = min(cc.DEFAULT_LMAX, ca.K)
-    print(f"[cluster] atrium: T={big.n_tris} lights={big.n_lights} K={ca.K} M={ca.M} "
-          f"stream={cc.streams_by_budget(ca.K, ca.M)} (packed {ca.K * ca.M * cc.PACK_W * 4 / 2**20:.1f} "
-          f"MiB by the JAX rule); scene {t_scene:.2f} s, clusters + buffers {t_clusters:.2f} s")
-    if (big.n_tris, ca.K) != (481_208, 3_760) or not cc.streams_by_budget(ca.K, ca.M):
+    print(f"[cluster] atrium: T={big.n_tris} lights={big.n_lights} K={ca.K} M={ca.M}; "
+          f"route {route_of(cc, ca.K, ca.M)}; scene {t_scene:.2f} s, clusters + buffers "
+          f"{t_clusters:.2f} s")
+    if (big.n_tris, ca.K) != (481_208, 3_760) or route_of(cc, ca.K, ca.M) != "stream":
         raise AssertionError("the full atrium is no longer the 481,208-triangle streaming scene")
     with torch.no_grad():
-        waves, primary_hits, primary_t = atrium_wavefronts(big, *ATRIUM_RES, dev)
+        waves, primary_hits, primary_t = atrium_wavefronts(big, *ATRIUM_RES, dev, clusters=ca)
         if waves["primary"][0].shape[1] != 7200 or primary_hits < 0.99:
             raise AssertionError(f"atrium primary wavefront: B0 or hit share {primary_hits} off")
         big_errs, big_inputs, n_over = compare_cluster(
             cc, "atrium 1280x720", waves, bmin, bmax, Le, packed, attrs, rng, all_rows=False,
-            routes=("stream",))
+            route="stream")
         lap("phase 2b, scene and checks")
-        ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng,
-                                routes=("stream",))
+        ctimings = time_cluster(cc, big_inputs, bmin, bmax, packed, attrs, rng, "stream")
         lap("phase 2b, timings")
         k3_waves(cc, card, *(torch.cat([waves["primary"][i], waves["bounce"][i]], 1)
                              for i in (0, 1)), bmin, bmax)
@@ -1249,8 +1249,9 @@ def main() -> int:
         raise AssertionError("no overflow row was compared: phase 2 of K6/K7 went unchecked")
     del big, packed, attrs, waves, big_inputs, boxes, primary_t
     torch.cuda.empty_cache()
-    print("[cluster] K3 exact, K6/K7 bitwise against their plain versions; X1 exact against "
-          "its plain version and K3's hit mask")
+    print("[cluster] K3 exact, K6/K7 bitwise against their plain versions, visit counts "
+          "equal to the replay of their exit rule; X1 exact against its plain version and "
+          "K3's hit mask")
 
     lap("phase 2b, K3 by waves and X1")
     # --- phase 2c: resident cluster kernels (262k) -----------------------------
@@ -1266,20 +1267,18 @@ def main() -> int:
     sync()
     t_clusters = time.perf_counter() - t0
     print(f"[cluster] atrium:{MID_TRIS}: T={mid.n_tris} lights={mid.n_lights} K={mca.K} "
-          f"M={mca.M} stream={cc.streams_by_budget(mca.K, mca.M)} (packed "
-          f"{mca.K * mca.M * cc.PACK_W * 4 / 2**20:.1f} MiB by the JAX rule, the port's "
-          f"(K, 10, M) matrix {m_packed.numel() * 4 / 2**20:.1f} MiB); scene {t_scene:.2f} s, "
+          f"M={mca.M}; route {route_of(cc, mca.K, mca.M)}; scene {t_scene:.2f} s, "
           f"clusters + buffers {t_clusters:.2f} s")
-    if (mid.n_tris, mca.K) != (261_396, 2_043) or cc.streams_by_budget(mca.K, mca.M):
+    if (mid.n_tris, mca.K) != (261_396, 2_043) or route_of(cc, mca.K, mca.M) != "resident":
         raise AssertionError("atrium:262144 is no longer the 261,396-triangle resident scene")
     with torch.no_grad():
-        m_waves, primary_hits, _ = atrium_wavefronts(mid, *ATRIUM_RES, dev)
+        m_waves, primary_hits, _ = atrium_wavefronts(mid, *ATRIUM_RES, dev, clusters=mca)
         if primary_hits < 0.99:
             raise AssertionError(f"atrium:{MID_TRIS} primary hit share {primary_hits} off")
         mid_errs, mid_inputs, n_over = compare_cluster(
             cc, f"atrium:{MID_TRIS} 1280x720", m_waves, m_bmin, m_bmax,
             min(cc.DEFAULT_LMAX, mca.K), m_packed, m_attrs, rng, all_rows=False,
-            routes=("resident", "stream"))
+            route="resident")
         small = build_scene_tensors(atrium(2_200, seed=5), device=dev)
         sca = build_clusters(*(x.cpu().numpy() for x in (small.tri_v0, small.tri_v1, small.tri_v2)), 32)
         s_packed, s_attrs2 = cc.derive_buffers(small, sca)
@@ -1287,11 +1286,11 @@ def main() -> int:
         small_errs, s_inputs, s_over = compare_cluster(
             cc, "atrium(2_200) M=32", s_waves, torch.from_numpy(sca.bbox_min).to(dev),
             torch.from_numpy(sca.bbox_max).to(dev), SMALL_LMAX, s_packed, s_attrs2, rng,
-            all_rows=True, routes=("resident", "stream"))
-        check_visits(cc, "atrium(2_200) M=32", s_inputs, s_packed, s_attrs2)
+            all_rows=True, route="resident")
+        check_visits(cc, "atrium(2_200) M=32", s_inputs, s_packed, s_attrs2, "resident")
         lap("phase 2c, 262k scene and checks, atrium(2_200)")
         mtimings = time_cluster(cc, mid_inputs, m_bmin, m_bmax, m_packed, m_attrs, rng,
-                                routes=("resident", "stream"))
+                                "resident")
         lap("phase 2c, 262k timings")
         # The 19k frame's wavefronts in pixel order, as the integrator
         # traces them there (K = 148 < COMPACT_MIN_K: no compaction, no sort).
@@ -1302,30 +1301,73 @@ def main() -> int:
         n_bmax = torch.from_numpy(nca.bbox_max).to(dev)
         if nca.K != 148 or nca.K >= cc.COMPACT_MIN_K:
             raise AssertionError(f"atrium:{NANO_TRIS} has K={nca.K}, not 148")
-        n_waves, _, _ = atrium_wavefronts(nano, *NANO_RES, dev, sorted_=False)
+        n_waves, _, _ = atrium_wavefronts(nano, *NANO_RES, dev, sorted_=False, clusters=nca)
         nano_errs, nano_inputs, _ = compare_cluster(
             cc, f"atrium:{NANO_TRIS} 1024x1024", n_waves, n_bmin, n_bmax,
             min(cc.DEFAULT_LMAX, nca.K), n_packed, n_attrs, rng, all_rows=False,
-            routes=("resident", "stream"))
+            route="resident")
         ntimings = time_cluster(cc, nano_inputs, n_bmin, n_bmax, n_packed, n_attrs, rng,
-                                routes=("resident", "stream"))
+                                "resident")
         lap("phase 2c, 19k checks and timings")
         x1_times["262k shadow"] = compare_x1(
             xc, cc, f"atrium:{MID_TRIS} shadow", *m_waves["shadow"][:3], m_bmin,
             m_bmax, torch.from_numpy(xc.pack_cull_boxes(mca.bbox_min, mca.bbox_max)).to(dev))
     if n_over == 0 or s_over == 0:
         raise AssertionError("no overflow row was compared: phase 2 of K4/K5 went unchecked")
-    cluster_errs = {k: max(e.get(k, 0.0) for e in (big_errs, mid_errs, small_errs, nano_errs))
-                    for k in ("cull", *cc.ROUTES["resident"], *cc.ROUTES["stream"])}
     # The renders and phase 5 build their own scenes: hold nothing of this
     # phase's on the card while their peak memory is read.
     del mid, m_packed, m_attrs, m_waves, mid_inputs, small, s_packed, s_attrs2, s_waves
     del s_inputs, nano, n_packed, n_attrs, n_waves, nano_inputs
     torch.cuda.empty_cache()
-    print("[cluster] K3 exact, K4/K5 bitwise against their plain versions and against "
-          "K6/K7, visit counts equal to the replay of their exit rules")
+    print("[cluster] K3 exact, K4/K5 bitwise against their plain versions, visit counts "
+          "equal to the replay of their exit rule")
 
     lap("phase 2c, X1")
+    # --- phase 2d: the 3M atrium, whose matrix outgrows L2 -------------------
+    t0 = time.perf_counter()
+    huge = build_scene_tensors(atrium(BIG3M_TRIS), device=dev)
+    sync()
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hca = build_clusters(*(x.cpu().numpy() for x in (huge.tri_v0, huge.tri_v1, huge.tri_v2)))
+    h_packed, h_attrs = cc.derive_buffers(huge, hca)
+    h_bmin = torch.from_numpy(hca.bbox_min).to(dev)
+    h_bmax = torch.from_numpy(hca.bbox_max).to(dev)
+    sync()
+    t_clusters = time.perf_counter() - t0
+    print(f"[cluster] atrium:{BIG3M_TRIS}: T={huge.n_tris} lights={huge.n_lights} K={hca.K} "
+          f"M={hca.M}; route {route_of(cc, hca.K, hca.M)}; (K, 10, M) matrix "
+          f"{hca.K * cc.GEO_ROWS * hca.M * 4 / 2**20:.1f} MiB; scene {t_scene:.2f} s, "
+          f"clusters + buffers {t_clusters:.2f} s")
+    if (huge.n_tris, hca.K) != (2_999_720, 23_436) or route_of(cc, hca.K, hca.M) != "stream":
+        raise AssertionError(f"atrium:{BIG3M_TRIS} is no longer the 2,999,720-triangle "
+                             "streaming scene of 23,436 clusters")
+    with torch.no_grad():
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        h_waves, primary_hits, _ = atrium_wavefronts(huge, *ATRIUM_RES, dev, clusters=hca)
+        if primary_hits < 0.99:
+            raise AssertionError(f"atrium:{BIG3M_TRIS} primary hit share {primary_hits} off")
+        h_bounce = h_waves["bounce"]
+        h_waves = {w: h_waves[w] for w in ("primary", "shadow")}
+        huge_errs, huge_inputs, h_over = compare_cluster(
+            cc, f"atrium:{BIG3M_TRIS} 1280x720", h_waves, h_bmin, h_bmax,
+            min(cc.DEFAULT_LMAX, hca.K), h_packed, h_attrs, rng, all_rows=False,
+            route="stream", sample=BIG3M_SAMPLE, max_overflow=BIG3M_SAMPLE)
+        sync()
+        print(f"[cluster] atrium:{BIG3M_TRIS}: peak device memory of the checks "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (the (B0, K) keys "
+              f"{7200 * hca.K * 4 / 2**20:.1f} MiB each, kernel's and plain)")
+        lap("phase 2d, 3M scene and checks")
+        htimings = time_cluster(cc, huge_inputs, h_bmin, h_bmax, h_packed, h_attrs, rng,
+                                "stream", plain_cull=False)
+        bounce_3m(cc, card, *h_bounce[:2], h_bmin, h_bmax, h_packed, h_attrs)
+        lap("phase 2d, 3M timings")
+    del huge, h_packed, h_attrs, h_waves, huge_inputs, h_bounce
+    torch.cuda.empty_cache()
+    cluster_errs = {k: max(e.get(k, 0.0) for e in (big_errs, mid_errs, small_errs, nano_errs,
+                                                   huge_errs))
+                    for k in ("cull", *cc.ROUTES["resident"], *cc.ROUTES["stream"])}
     # --- phase 3: Cornell render -------------------------------------------------
     renderer, launches, _, mem, exported = cli_render(
         cli, repo, counts, ["samples", str(RENDER_SPP)], "cornell_768.exr")
@@ -1366,12 +1408,12 @@ def main() -> int:
          "yres", str(ATRIUM_RES[1]), "samples", "1", "k", str(ATRIUM_K), *cam],
         "atrium_1280x720.exr")
     add_launches(a_launches)
-    check_atrium_render(a_renderer, a_exported, a_launches,
-                        {"cull": 2 * ATRIUM_K, "closest_cluster": ATRIUM_K,
-                         "any_cluster": ATRIUM_K}, "atrium", ATRIUM_RES)
+    check_atrium_render(a_renderer, a_exported, a_launches, route_launches(cc, "stream"),
+                        "atrium", ATRIUM_RES)
     if a_renderer.intersectors[0].route != "stream":
         raise AssertionError("the 481k atrium did not take the streaming route")
     report_frame(card, "atrium 481k 1280x720", a_renderer, a_total, a_mem)
+    profile_frame(a_renderer, card)
     del a_renderer, a_exported
     torch.cuda.empty_cache()
 
@@ -1417,7 +1459,7 @@ def main() -> int:
          "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
          "k", str(ATRIUM_K), *cam], "atrium_262k.exr")
     add_launches(m_launches)
-    resident = {"cull": 2 * ATRIUM_K, "closest_resident": ATRIUM_K, "any_resident": ATRIUM_K}
+    resident = route_launches(cc, "resident")
     check_atrium_render(m_renderer, m_exported, m_launches, resident,
                         f"atrium:{MID_TRIS}", ATRIUM_RES)
     if m_renderer.intersectors[0].route != "resident" or \
@@ -1443,6 +1485,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("phase 3c")
+    # --- phase 3d: the 3M frame through auto ------------------------------------
+    h_renderer, h_launches, h_total, h_mem, h_exported = cli_render(
+        cli, repo, counts,
+        ["input", f"synthetic:atrium:{BIG3M_TRIS}", "intersector", "auto",
+         "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
+         "k", str(ATRIUM_K), *cam], "atrium_3m.exr")
+    add_launches(h_launches)
+    check_atrium_render(h_renderer, h_exported, h_launches, route_launches(cc, "stream"),
+                        f"atrium:{BIG3M_TRIS}", ATRIUM_RES)
+    if h_renderer.intersectors[0].route != "stream":
+        raise AssertionError(f"atrium:{BIG3M_TRIS} did not take the streaming route")
+    report_frame(card, f"atrium:{BIG3M_TRIS} 1280x720", h_renderer, h_total, h_mem)
+    profile_frame(h_renderer, card)
+    del h_renderer, h_exported
+    torch.cuda.empty_cache()
+
+    lap("phase 3d")
     # --- phase 4: timings ---------------------------------------------------------
     timings = {}
     with torch.no_grad():
@@ -1466,6 +1525,7 @@ def main() -> int:
     for kid, (b_ms, b_by) in zip(("K1", "K2"), dense_bound):
         print(f"[timing] {card}: {kid} bound on the cornell queries {b_ms * 1e3:.1f} us ({b_by})")
     print_cluster_timings(card, "atrium 481k", ctimings)
+    print_cluster_timings(card, f"atrium:{BIG3M_TRIS}", htimings)
     print_cluster_timings(card, f"atrium:{MID_TRIS}", mtimings)
     print_cluster_timings(card, f"atrium:{NANO_TRIS}", ntimings)
     for what, x in x1_times.items():

@@ -358,18 +358,20 @@ def test_wrapper_checks_inputs(atrium_case):
         cc.closest_cluster(*lists, o3, d3, packed, attrs.clone().requires_grad_())
     with pytest.raises(ValueError, match="closest_cluster_diff"):
         cc.closest_resident(*lists, o3.clone().requires_grad_(), d3, packed, attrs)
-    # On the CPU a visits output is filled from the exit rules' replay: per
-    # warp (B0, 4) for the resident kernels, per row (B0,) for streaming.
-    with pytest.raises(ValueError, match="shape"):
-        cc.closest_resident(*lists, o3, d3, packed, attrs,
-                            visits=torch.zeros(o3.shape[1], dtype=torch.int32))
+    # On the CPU a visits output is filled from the exit rule's replay, per
+    # warp (B0, 4) for every visit kernel: K6/K7 walk per warp as K4/K5 do.
+    for kernel in (cc.closest_resident, cc.closest_cluster):
+        with pytest.raises(ValueError, match="shape"):
+            kernel(*lists, o3, d3, packed, attrs,
+                   visits=torch.zeros(o3.shape[1], dtype=torch.int32))
     v4 = torch.zeros((o3.shape[1], cc.WARPS), dtype=torch.int32)
-    v6 = torch.zeros(o3.shape[1], dtype=torch.int32)
+    v6 = torch.zeros((o3.shape[1], cc.WARPS), dtype=torch.int32)
     cc.closest_resident(*lists, o3, d3, packed, attrs, visits=v4)
     cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=v6)
     assert torch.equal(v4, cc.visit_counts_plain(*lists, o3, d3, packed))
-    assert torch.equal(v6, cc.visit_counts_plain(*lists, o3, d3, packed, lanes=128)[:, 0])
-    assert bool((v4 > 0).any()) and bool((v4 <= v6[:, None]).all())
+    assert torch.equal(v6, v4)
+    row = cc.visit_counts_plain(*lists, o3, d3, packed, lanes=128)
+    assert bool((v4 > 0).any()) and bool((v6 <= row).all())
 
 
 # ---------------------------------------------------------------------------
@@ -454,6 +456,15 @@ def test_per_warp_walk_matches_jax_resident(resident_visits, atrium_case):
                                       lanes=128)
         assert v_warp.shape == (4, cc.WARPS) and v_row.shape == (4, 1)
         assert bool((v_warp <= v_row).all()) and bool((v_warp.amax(1) == v_row[:, 0]).all())
+        # Every visit kernel's wrapper counts by this per-warp walk.
+        for kernel in ("closest_cluster", "closest_resident") if tm is None else \
+                ("any_cluster", "any_resident"):
+            got = torch.zeros((4, cc.WARPS), dtype=torch.int32)
+            if tm is None:
+                cc._closest_visit(kernel, *ls, o3, d3, packed, attrs, got)
+            else:
+                cc._any_visit(kernel, *ls, o3, d3, tm, excl, packed, got)
+            assert torch.equal(got, v_warp), kernel
 
 
 def _brute_visits(lists, o3, d3, packed, tmax, excl, lanes):

@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain torch versions, on a
 card: K1/K2 (dense), K3 (the cluster cull, also on its edge cases), K4/K5
-(the resident cluster visits) and K6/K7 (the streaming ones),
-X1 (the row-hit cull) and X2 (the double-buffered block fetch); K4/K5 also
-against K6/K7, the visit counts against the torch replay of the exit rules,
-and the card's gradients against the CPU's.
+(the resident cluster visits) and K6/K7 (the streaming ones; on the card
+the same two kernels, under their own launch counts), also on rows built so
+that a row's warps leave their walks far apart, X1 (the row-hit cull) and
+X2 (the double-buffered block fetch); K4/K5 also against K6/K7, the
+per-warp visit counts against the torch replay of the exit rule, and the
+card's gradients against the CPU's.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -171,6 +173,7 @@ def _atrium_lists(dev, lmax, m=32):
     q["excl"] = torch.tensor(rng.integers(-1, scene.n_tris, (B0, 128)), dtype=torch.int32,
                              device=dev)
     Le = min(lmax, ca.K)
+    q["boxes"] = (bmin, bmax)
     q["lists"] = cc.cull(q["o3"], q["d3"], bmin, bmax, Le)
     q["slists"] = cc.cull(q["o3"], q["d3"], bmin, bmax, Le, tmax=q["tmax"])
     return packed, attrs, q
@@ -185,14 +188,17 @@ RESIDENT_CASES = [(32, 6), (32, 1536), (128, 6), (1024, 6)]
 @pytest.mark.cuda
 @pytest.mark.parametrize("m, lmax", RESIDENT_CASES)
 def test_resident_kernels_equal_streaming_and_plain(m, lmax, cuda_device):
-    """K4 bitwise equal to K6 and K5 to K7 on the same lists (the same
-    function by two walks), and both to the plain versions.  The visit
-    counts equal the torch replay of the exit rules exactly: K4/K5's per
-    warp, K6/K7's per row; a warp visits no more clusters than its row."""
+    """K4 bitwise equal to K6 and K5 to K7 on the same lists (on the card
+    one kernel each, launched under two names), and both to the plain
+    versions.  Every
+    kernel's visit counts are per warp and equal the torch replay of the
+    exit rule exactly; a warp visits no more clusters than a row walking
+    together would."""
     packed, attrs, q = _atrium_lists(cuda_device, lmax, m)
     o3, d3, lists, slists = q["o3"], q["d3"], q["lists"], q["slists"]
     tmax, excl = q["tmax"], q["excl"]
-    v6, v7 = (torch.zeros(B0, dtype=torch.int32, device=cuda_device) for _ in range(2))
+    v6, v7 = (torch.zeros((B0, cc.WARPS), dtype=torch.int32, device=cuda_device)
+              for _ in range(2))
     k6 = cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=v6)
     k7 = cc.any_cluster(*slists, o3, d3, tmax, excl, packed, visits=v7)
     want = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
@@ -200,9 +206,9 @@ def test_resident_kernels_equal_streaming_and_plain(m, lmax, cuda_device):
     w4 = cc.visit_counts_plain(*lists, o3, d3, packed)
     w5 = cc.visit_counts_plain(*slists, o3, d3, packed, tmax, excl)
     torch.cuda.synchronize()
-    assert torch.equal(v6, cc.visit_counts_plain(*lists, o3, d3, packed, lanes=128)[:, 0])
-    assert torch.equal(v7, cc.visit_counts_plain(*slists, o3, d3, packed, tmax, excl,
-                                                 lanes=128)[:, 0])
+    assert torch.equal(v6, w4) and torch.equal(v7, w5)
+    row6 = cc.visit_counts_plain(*lists, o3, d3, packed, lanes=128)[:, 0]
+    row7 = cc.visit_counts_plain(*slists, o3, d3, packed, tmax, excl, lanes=128)[:, 0]
     assert bool(lists[0][:, 1].any()) == (lmax == 6 and packed.shape[0] > 6)
     v4, v5 = (torch.zeros((B0, cc.WARPS), dtype=torch.int32, device=cuda_device)
               for _ in range(2))
@@ -217,10 +223,88 @@ def test_resident_kernels_equal_streaming_and_plain(m, lmax, cuda_device):
         assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), field
     assert torch.equal(k5, k7) and torch.equal(k5, want_occ)
     assert torch.equal(v4, w4) and torch.equal(v5, w5)
-    for got, row in ((v4, v6), (v5, v7)):
+    for got, row in ((v4, row6), (v5, row7)):
         assert bool((got <= row[:, None]).all()) and bool((got.amax(1) == row).all())
     assert int(v4.sum()) > 0 and int(v5.sum()) > 0
     assert 0.05 < float(want_occ.float().mean()) < 0.95
+
+
+def _built_rows(dev, lmax, m):
+    """:func:`_atrium_lists` with rows built for the per-warp walks: row 0
+    parked (every lane outside the scene, pointing away: trip 0); in rows
+    2, 5, 8, ... warp 0 keeps its rays inside the scene (near hits) with
+    tmax -1 (below every near: its occlusion walk needs no visit), while warp 2's lanes start
+    outside the scene pointing away (they hit nothing, so their closest
+    walk and, with tmax huge, their occlusion walk take the whole list)."""
+    packed, attrs, q = _atrium_lists(dev, lmax, m)
+    scene_max = q["o3"].amax(dim=(1, 2))
+    o3, d3, tmax = q["o3"].clone(), q["d3"].clone(), q["tmax"].clone()
+    away = scene_max[:, None] + 50.0
+    o3[:, 0], d3[:, 0] = away, 1.0
+    rows = torch.arange(2, B0, 3, device=dev)
+    o3[:, rows, 64:96] = away[:, :, None]
+    d3[:, rows, 64:96] = 1.0
+    tmax[rows, 0:32] = -1.0
+    tmax[rows, 64:96] = 1.0e30
+    bmin, bmax = q["boxes"]
+    Le = q["lists"][1].shape[1]
+    q.update(o3=o3, d3=d3, tmax=tmax, lists=cc.cull(o3, d3, bmin, bmax, Le),
+             slists=cc.cull(o3, d3, bmin, bmax, Le, tmax=tmax))
+    return packed, attrs, q, rows
+
+
+# (M, Lmax) for the built rows: M = 32 (K = 85) with lists far longer than
+# a warp's ring of two slots, overflowing into phase 2 and not; M = 128
+# (K = 22); M = 1024 (K = 3), one slot a warp, opted in.
+BUILT_CASES = [(32, 6), (32, 1536), (128, 1536), (1024, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, lmax", BUILT_CASES)
+def test_visit_walks_on_built_rows_on_card(m, lmax, cuda_device):
+    """K4-K7 on rows built so that a row's warps leave the walk far apart
+    (one warp needs the whole list, another none), trip-0 rows, overflow
+    rows and lists longer than a warp's ring: K6/K7 bitwise equal to the
+    plain versions and to K4/K5, every kernel's per-warp visit counts
+    equal to the replay, each launch counted under its own name."""
+    packed, attrs, q, rows = _built_rows(cuda_device, lmax, m)
+    o3, d3, lists, slists = q["o3"], q["d3"], q["lists"], q["slists"]
+    tmax, excl = q["tmax"], q["excl"]
+    counts = {k: torch.zeros((B0, cc.WARPS), dtype=torch.int32, device=cuda_device)
+              for k in ("k4", "k5", "k6", "k7")}
+    before = dict(cc.LAUNCHES)
+    k6 = cc.closest_cluster(*lists, o3, d3, packed, attrs, visits=counts["k6"])
+    k7 = cc.any_cluster(*slists, o3, d3, tmax, excl, packed, visits=counts["k7"])
+    k4 = cc.closest_resident(*lists, o3, d3, packed, attrs, visits=counts["k4"])
+    k5 = cc.any_resident(*slists, o3, d3, tmax, excl, packed, visits=counts["k5"])
+    torch.cuda.synchronize()
+    assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
+        "cull": 0, "closest_resident": 1, "any_resident": 1, "closest_cluster": 1,
+        "any_cluster": 1}
+    want = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
+    for field, a, b, c in zip(("t", "id", "u", "v", "attrs"), k6, k4, want):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), field
+    assert torch.equal(k7, k5)
+    assert torch.equal(k7, cc.any_cluster_plain(*slists, o3, d3, tmax, excl, packed))
+    w_closest = cc.visit_counts_plain(*lists, o3, d3, packed)
+    w_any = cc.visit_counts_plain(*slists, o3, d3, packed, tmax, excl)
+    for k, w in (("k4", w_closest), ("k6", w_closest), ("k5", w_any), ("k7", w_any)):
+        assert torch.equal(counts[k], w), k
+    trip, strip = lists[0][:, 0], slists[0][:, 0]
+    # The parked row visits nothing; in the built rows warp 2 walks the
+    # whole list while warp 0 needs no occlusion visit.
+    assert int(trip[0]) == 0 and int(strip[0]) == 0
+    assert not bool(counts["k6"][0].any()) and not bool(counts["k7"][0].any())
+    full = ~lists[0][rows, 1].bool()
+    assert torch.equal(counts["k6"][rows, 2][full], trip[rows][full])
+    assert not bool(counts["k7"][rows, 0].any())
+    sfull = ~slists[0][rows, 1].bool()
+    assert bool((counts["k7"][rows, 2][sfull] == strip[rows][sfull]).all())
+    assert bool(((counts["k7"][rows, 2] > 0) & (counts["k7"][rows, 0] == 0)).any())
+    if m == 32:
+        assert int(trip.max()) > 4                          # lists past the ring
+    assert bool(lists[0][:, 1].any()) == (lmax == 6 and packed.shape[0] > 6)
+    assert bool((~k7[rows, 64:96]).all())                   # warp 2 never occluded
 
 
 def _cull_inputs(dev, B0_, K, with_tmax, axis_parallel, on_planes, seed):
