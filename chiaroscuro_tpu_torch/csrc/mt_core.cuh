@@ -14,7 +14,7 @@
 
 namespace mt {
 
-constexpr int kLanes = 128;     // rays per row = threads per block
+constexpr int kLanes = 128;     // rays per row (a cluster kernel's block)
 constexpr int kAttrK = 32;      // attribute row width (ops/intersect_cuda.py ATTR_K)
 constexpr float kBig = 3.0e38f;
 constexpr float kFltEps = 1.1920928955078125e-07f;  // FLT_EPSILON
@@ -36,43 +36,64 @@ struct Tri {
   float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
 };
 
-// The test on a triangle held in registers.
-__device__ __forceinline__ bool mt_test(const Ray& r, const Tri& tri,
-                                        float& t, float& u, float& v) {
-  const float v0x = tri.v0x, v0y = tri.v0y, v0z = tri.v0z;
-  const float e1x = tri.e1x, e1y = tri.e1y, e1z = tri.e1z;
-  const float e2x = tri.e2x, e2y = tri.e2y, e2z = tri.e2z;
+// The test up to u: p = cross(d, e2), a, the parallel test, f, s and u.
+struct Front {
+  float px, py, pz, f, sx, sy, sz, u;
+  bool nonpar;
+};
+
+// kFrcp takes f = __frcp_rn(nonpar ? a : 1), the same correctly rounded bits
+// as 1.0f / (nonpar ? a : 1), which nvcc compiles as the reciprocal of a
+// selected afterwards, so that a == 0 takes the division's slow path
+// (intersect_dense.cu); the cluster kernels keep the division.
+template <bool kFrcp = false>
+__device__ __forceinline__ Front mt_front(const Ray& r, const Tri& tri) {
+  Front h;
   // p = cross(d, e2)
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float a = e1x * px + e1y * py + e1z * pz;
-  const bool nonpar = fabsf(a) >= kFltEps;
-  const float f = 1.0f / (nonpar ? a : 1.0f);
-  const float sx = r.ox - v0x;
-  const float sy = r.oy - v0y;
-  const float sz = r.oz - v0z;
-  u = f * (sx * px + sy * py + sz * pz);
-  // q = cross(s, e1)
-  const float qx = sy * e1z - sz * e1y;
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  t = f * (e2x * qx + e2y * qy + e2z * qz);
-  return nonpar && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-         t >= 0.0f;
+  h.px = r.dy * tri.e2z - r.dz * tri.e2y;
+  h.py = r.dz * tri.e2x - r.dx * tri.e2z;
+  h.pz = r.dx * tri.e2y - r.dy * tri.e2x;
+  const float a = tri.e1x * h.px + tri.e1y * h.py + tri.e1z * h.pz;
+  h.nonpar = fabsf(a) >= kFltEps;
+  h.f = kFrcp ? __frcp_rn(h.nonpar ? a : 1.0f) : 1.0f / (h.nonpar ? a : 1.0f);
+  h.sx = r.ox - tri.v0x;
+  h.sy = r.oy - tri.v0y;
+  h.sz = r.oz - tri.v0z;
+  h.u = h.f * (h.sx * h.px + h.sy * h.py + h.sz * h.pz);
+  return h;
 }
 
-// The test on a triangle whose nine fields lie `stride` floats apart in
-// memory (the dense kernels' (T, 9) rows: 1).
-__device__ __forceinline__ bool mt_hit(const Ray& r, const float* tri,
-                                       int stride, float& t, float& u,
-                                       float& v) {
-  return mt_test(r,
-                 Tri{tri[0 * stride], tri[1 * stride], tri[2 * stride],
-                     tri[3 * stride], tri[4 * stride], tri[5 * stride],
-                     tri[6 * stride], tri[7 * stride], tri[8 * stride]},
-                 t, u, v);
+// Whether u could still accept: the part of the acceptance test that
+// mt_front's outputs decide.
+__device__ __forceinline__ bool mt_u_ok(const Front& h) {
+  return h.nonpar && h.u >= 0.0f && h.u <= 1.0f;
+}
+
+// The rest of the test after mt_front: q = cross(s, e1), v, t and the
+// acceptance test.
+__device__ __forceinline__ bool mt_back(const Ray& r, const Tri& tri,
+                                        const Front& h, float& t, float& v) {
+  const float qx = h.sy * tri.e1z - h.sz * tri.e1y;
+  const float qy = h.sz * tri.e1x - h.sx * tri.e1z;
+  const float qz = h.sx * tri.e1y - h.sy * tri.e1x;
+  v = h.f * (r.dx * qx + r.dy * qy + r.dz * qz);
+  t = h.f * (tri.e2x * qx + tri.e2y * qy + tri.e2z * qz);
+  return mt_u_ok(h) && v >= 0.0f && h.u + v <= 1.0f && t >= 0.0f;
+}
+
+// The test on a triangle held in registers: mt_front, then mt_back.
+__device__ __forceinline__ bool mt_test(const Ray& r, const Tri& tri,
+                                        float& t, float& u, float& v) {
+  const Front h = mt_front(r, tri);
+  u = h.u;
+  return mt_back(r, tri, h, t, v);
+}
+
+// One triangle from three 16-byte rows v0|e1|e2 (w unused): the dense
+// kernels' padded table, three vector loads a triangle.
+__device__ __forceinline__ Tri tri_from_rows(const float4* rows) {
+  const float4 a = rows[0], b = rows[1], c = rows[2];
+  return Tri{a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
 }
 
 // The winner's 32 attributes from the original-order (T, 32) table, written

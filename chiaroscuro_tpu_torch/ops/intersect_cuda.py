@@ -9,7 +9,11 @@ versions, and the intersector pair the integrator calls.
   with id != excl hits at t < tmax.
 
 The kernels live in ``csrc/intersect_dense.cu`` (its header says what bounds
-them on an H100 and how the design answers it).  They are built with
+them on an H100 and how the design answers it).  They read the triangles
+from :func:`pad_table`'s (T, 12) copy of the (T, 9) rows, which
+:func:`make_dense_intersectors` makes once per intersector pair; each block
+keeps up to 4,096 of them, the dense path's ceiling, in shared memory at
+once, and sweeps a larger table in chunks.  They are built with
 ``nvcc`` for ``sm_90a`` at first use into ``chiaroscuro_tpu_torch/_build/``
 and bound with ``ctypes``.  Each wrapper takes the plain torch version only
 for CPU tensors; for CUDA tensors it launches its kernel or raises — there
@@ -47,6 +51,10 @@ FLT_EPS = float(np.finfo(np.float32).eps)
 BIG = 3.0e38
 LANE = 128
 
+# Lanes that vote together in the kernels' warp-uniform reject: one warp,
+# 32 consecutive lanes of a row (csrc/intersect_dense.cu).
+REJECT_LANES = 32
+
 # Kernel launch counts, by kernel.  Incremented only where a wrapper
 # launches its kernel; the plain versions never count.
 LAUNCHES = {"closest": 0, "any": 0}
@@ -80,6 +88,16 @@ _PLAIN_PAIRS = 1 << 22
 def _prep_tris(v0, v1, v2):
     """(T, 9) rows [v0x v0y v0z e1x e1y e1z e2x e2y e2z]."""
     return torch.cat([v0, v1 - v0, v2 - v0], dim=1).contiguous()
+
+
+def pad_table(tri_rows):
+    """The kernels' copy of the (T, 9) triangle rows: (T, 12) f32
+    ``v0|0|e1|0|e2|0``, 48 bytes a triangle, so that a kernel reads one as
+    three 16-byte loads.  Detached: gradients flow through ``tri_rows``."""
+    T = tri_rows.shape[0]
+    table = tri_rows.new_zeros((T, 3, 4))
+    table[:, :, :3] = tri_rows.detach().reshape(T, 3, 3)
+    return table.reshape(T, 12)
 
 
 def _prep_attrs(scene):
@@ -123,11 +141,9 @@ def unpack_attrs_planar(mat):
     return out
 
 
-def _mt_core(o, d, v0, e1, e2):
-    """Moller-Trumbore over broadcastable components, in the operand order
-    of the JAX ``_mt_core`` and of the CUDA ``mt_hit``: o, d are tuples of
-    (1, R) ray rows, v0/e1/e2 tuples of (C, 1) triangle columns.  Returns
-    (ok, t, u, v), each (C, R)."""
+def _mt_front(o, d, v0, e1, e2):
+    """The test up to u (CUDA ``mt_front``): p = cross(d, e2), the parallel
+    test and f, s = o - v0 and u.  Returns (nonpar, f, s, u)."""
     ox, oy, oz = o
     dx, dy, dz = d
     v0x, v0y, v0z = v0
@@ -146,6 +162,18 @@ def _mt_core(o, d, v0, e1, e2):
     sy = oy - v0y
     sz = oz - v0z
     u = f * (sx * px + sy * py + sz * pz)
+    return nonpar, f, (sx, sy, sz), u
+
+
+def _mt_core(o, d, v0, e1, e2):
+    """Moller-Trumbore over broadcastable components, in the operand order
+    of the JAX ``_mt_core`` and of the CUDA ``mt_test``: o, d are tuples of
+    (1, R) ray rows, v0/e1/e2 tuples of (C, 1) triangle columns.  Returns
+    (ok, t, u, v), each (C, R)."""
+    dx, dy, dz = d
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+    nonpar, f, (sx, sy, sz), u = _mt_front(o, d, v0, e1, e2)
     # q = cross(s, e1)
     qx = sy * e1z - sz * e1y
     qy = sz * e1x - sx * e1z
@@ -210,7 +238,10 @@ def closest_dense_plain(live, o3, d3, tri_rows, attrs):
     best_id = torch.where(hit, best_id, 0)
     best_u = torch.where(hit, best_u, 0.0)
     best_v = torch.where(hit, best_v, 0.0)
-    am = torch.where(hit[:, None], attrs[best_id.long()], 0.0)   # (R, ATTR_K)
+    if attrs.shape[0]:
+        am = torch.where(hit[:, None], attrs[best_id.long()], 0.0)   # (R, ATTR_K)
+    else:                       # no triangle: nothing hits, nothing to gather
+        am = attrs.new_zeros((R, ATTR_K))
     shape = (B0, LANE)
     return (
         best_t.reshape(shape),
@@ -223,19 +254,69 @@ def closest_dense_plain(live, o3, d3, tri_rows, attrs):
 
 def any_dense_plain(live, o3, d3, tmax, excl, tri_rows):
     """Plain torch K2: same inputs and outputs as :func:`any_dense`."""
+    first = first_blockers(live, o3, d3, tmax, excl, tri_rows)
+    return (first < tri_rows.shape[0]).reshape(o3.shape[1], LANE)
+
+
+def first_blockers(live, o3, d3, tmax, excl, tri_rows):
+    """(R,) int64: each lane's first blocker in id order (a hit at t < tmax
+    with id != excl), T where none or where the row is dead; the lane's
+    last test in K2, which stops there."""
     B0 = o3.shape[1]
     R = B0 * LANE
+    T = tri_rows.shape[0]
+    dev = o3.device
     o, d = _ray_rows(o3), _ray_rows(d3)
-    tm = tmax.reshape(1, R)
-    ex = excl.reshape(1, R)
-    occ = torch.zeros((R,), dtype=torch.bool, device=o3.device)
+    tm, ex = tmax.reshape(1, R), excl.reshape(1, R)
+    first = torch.full((R,), T, dtype=torch.int64, device=dev)
     for base, v0, e1, e2 in _tri_chunks(tri_rows, R):
         ok, t, _, _ = _mt_core(o, d, v0, e1, e2)
-        ids = torch.arange(base, base + t.shape[0], device=o3.device)[:, None]
-        blocking = ok & (t < tm) & (ids != ex)
-        occ = occ | blocking.any(dim=0)
-    occ = occ & (live != 0).repeat_interleave(LANE)
-    return occ.reshape(B0, LANE)
+        ids = torch.arange(base, base + t.shape[0], device=dev)[:, None]
+        blk = ok & (t < tm) & (ids != ex)
+        first = torch.minimum(first, torch.where(blk, ids, T).amin(dim=0))
+    lane_live = (_live_rows(live, B0, dev) != 0).repeat_interleave(LANE)
+    return torch.where(lane_live, first, T)
+
+
+def reject_counts(live, o3, d3, tri_rows, tmax=None, excl=None, per_warp=False):
+    """The (lane, triangle) tests that the kernels' warp-uniform reject
+    leaves, over the lanes of live rows: ``(full, front)``, the tests run
+    to the end and those stopped after u because no lane of their group of
+    REJECT_LANES (one warp) could still accept there (nonpar and
+    0 <= u <= 1).  With ``tmax``/``excl`` (K2) a lane tests up to and
+    including its first blocker (:func:`first_blockers`) and votes on those
+    tests only; with ``per_warp`` every lane of a group tests up to the
+    group's last first blocker, as a warp whose lanes all run until the
+    last is occluded.  What the kernels' bound counts: a full test is
+    MT_OPS operations, a stopped one the front's."""
+    B0 = o3.shape[1]
+    R = B0 * LANE
+    dev = o3.device
+    o, d = _ray_rows(o3), _ray_rows(d3)
+    lane_live = (_live_rows(live, B0, dev) != 0).repeat_interleave(LANE)
+    first = last = None
+    if tmax is not None:
+        first = last = first_blockers(live, o3, d3, tmax, excl, tri_rows)
+        if per_warp:
+            last = first.reshape(-1, REJECT_LANES).amax(dim=1)
+            last = last.repeat_interleave(REJECT_LANES)
+    full = torch.zeros((), dtype=torch.int64, device=dev)
+    tested_all = torch.zeros((), dtype=torch.int64, device=dev)
+    for base, v0, e1, e2 in _tri_chunks(tri_rows, R):
+        nonpar, _, _, u = _mt_front(o, d, v0, e1, e2)
+        C = u.shape[0]
+        tested = voting = lane_live.expand(C, R)
+        if first is not None:
+            ids = torch.arange(base, base + C, device=dev)[:, None]
+            tested = tested & (ids <= last)
+            voting = voting & (ids <= first)
+        cand = voting & nonpar & (u >= 0.0) & (u <= 1.0)
+        groups = (C, R // REJECT_LANES, REJECT_LANES)
+        vote = cand.reshape(groups).any(dim=-1, keepdim=True)
+        tested = tested.reshape(groups)
+        full += (tested & vote).sum()
+        tested_all += tested.sum()
+    return int(full), int(tested_all - full)
 
 
 # ---------------------------------------------------------------------------
@@ -284,20 +365,32 @@ def _launch_device(*tensors) -> torch.device:
     return device
 
 
-def closest_dense(live, o3, d3, tri_rows, attrs):
+def closest_dense(live, o3, d3, tri_rows, attrs, table=None):
     """K1: closest hit of each planar ray over all triangles.
 
     live: None or (B0,)/(B0, 1) row flags; o3, d3: (3, B0, 128) f32;
     tri_rows: (T, 9) f32 (:func:`_prep_tris`); attrs: (T, ATTR_K) f32
-    (:func:`_prep_attrs`).  Returns (t, id, u, v, attrs_out): (B0, 128)
-    f32/int32/f32/f32 and (ATTR_K, B0, 128) f32; a miss keeps t = BIG.
-    Differentiable with respect to o3, d3, tri_rows and attrs
-    (:func:`closest_hit`)."""
-    return closest_hit(functools.partial(_closest_dense_launch, live),
+    (:func:`_prep_attrs`); table: the kernel's (T, 12) copy of tri_rows
+    (:func:`pad_table`), made here when None.  Returns (t, id, u, v,
+    attrs_out): (B0, 128) f32/int32/f32/f32 and (ATTR_K, B0, 128) f32; a
+    miss keeps t = BIG.  Differentiable with respect to o3, d3, tri_rows
+    and attrs (:func:`closest_hit`)."""
+    return closest_hit(functools.partial(_closest_dense_launch, live, table=table),
                        o3, d3, tri_rows, attrs)
 
 
-def _closest_dense_launch(live, o3, d3, tri_rows, attrs):
+def _table(table, tri_rows, device):
+    """The kernel's (T, 12) table: ``table`` checked, or made from
+    ``tri_rows``."""
+    if table is None:
+        table = pad_table(tri_rows)
+    _check("table", table, (tri_rows.shape[0], 12), torch.float32, device)
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned")
+    return table
+
+
+def _closest_dense_launch(live, o3, d3, tri_rows, attrs, table=None):
     """K1 on detached inputs: the kernel, or its plain version on the
     CPU."""
     device = _launch_device(o3, d3, tri_rows, attrs)
@@ -312,6 +405,7 @@ def _closest_dense_launch(live, o3, d3, tri_rows, attrs):
         return closest_dense_plain(live, o3, d3, tri_rows, attrs)
     if attrs.data_ptr() % 16:
         raise ValueError("attrs must be 16-byte aligned")
+    table = _table(table, tri_rows, device)
     lib, _ = build()
     t = torch.empty((B0, LANE), dtype=torch.float32, device=device)
     tid = torch.empty((B0, LANE), dtype=torch.int32, device=device)
@@ -321,20 +415,21 @@ def _closest_dense_launch(live, o3, d3, tri_rows, attrs):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.closest_dense_launch(
-            live.data_ptr(), o3.data_ptr(), d3.data_ptr(), tri_rows.data_ptr(),
-            attrs.data_ptr(), B0, T, t.data_ptr(), tid.data_ptr(),
-            u.data_ptr(), v.data_ptr(), am.data_ptr(), stream,
+            live.data_ptr(), o3.data_ptr(), d3.data_ptr(), table.data_ptr(),
+            attrs.data_ptr(), B0, T, t.data_ptr(), tid.data_ptr(), u.data_ptr(),
+            v.data_ptr(), am.data_ptr(), stream,
         )
     check_launch(lib, err, "closest_dense")
     LAUNCHES["closest"] += 1
     return t, tid, u, v, am
 
 
-def any_dense(live, o3, d3, tmax, excl, tri_rows):
+def any_dense(live, o3, d3, tmax, excl, tri_rows, table=None):
     """K2: occlusion of each planar ray by any triangle with id != excl at
-    t < tmax.  tmax: (B0, 128) f32; excl: (B0, 128) int32.  Returns
-    (B0, 128) bool.  Occlusion is a discrete decision: the inputs are
-    taken detached (``intersect_pallas.py:586-603``)."""
+    t < tmax.  tmax: (B0, 128) f32; excl: (B0, 128) int32; table as for
+    :func:`closest_dense`.  Returns (B0, 128) bool.  Occlusion is a
+    discrete decision: the inputs are taken detached
+    (``intersect_pallas.py:586-603``)."""
     o3, d3, tmax, tri_rows = (x.detach() for x in (o3, d3, tmax, tri_rows))
     device = _launch_device(o3, d3, tmax, tri_rows)
     B0 = o3.shape[1]
@@ -347,14 +442,14 @@ def any_dense(live, o3, d3, tmax, excl, tri_rows):
     _check("tri_rows", tri_rows, (T, 9), torch.float32, device)
     if device.type == "cpu":
         return any_dense_plain(live, o3, d3, tmax, excl, tri_rows)
+    table = _table(table, tri_rows, device)
     lib, _ = build()
     occ = torch.empty((B0, LANE), dtype=torch.bool, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.any_dense_launch(
             live.data_ptr(), o3.data_ptr(), d3.data_ptr(), tmax.data_ptr(),
-            excl.data_ptr(), tri_rows.data_ptr(), B0, T, occ.data_ptr(),
-            stream,
+            excl.data_ptr(), table.data_ptr(), B0, T, occ.data_ptr(), stream,
         )
     check_launch(lib, err, "any_dense")
     LAUNCHES["any"] += 1
@@ -484,21 +579,24 @@ def make_dense_intersectors(scene):
 
     The triangle rows and the attribute table are derived from the scene's
     fields without detaching them, so a pair made from a scene whose fields
-    require grad (``SceneTensors.replace``) carries gradients to them.
+    require grad (``SceneTensors.replace``) carries gradients to them; the
+    kernels' (T, 12) copy of the rows (:func:`pad_table`) is made once here,
+    detached.
     """
     tri_rows = _prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
     attrs = _prep_attrs(scene)
+    table = pad_table(tri_rows)
 
     def closest_planar(o3, d3, live=None) -> ClosestHit:
         t, tid, u, v, am = closest_dense(
-            live, o3.contiguous(), d3.contiguous(), tri_rows, attrs
+            live, o3.contiguous(), d3.contiguous(), tri_rows, attrs, table
         )
         return ClosestHit(t < BIG, t, tid, u, v, unpack_attrs_planar(am))
 
     def any_planar(o3, d3, tmax, excl, live=None):
         return any_dense(
             live, o3.contiguous(), d3.contiguous(), tmax.contiguous(),
-            excl.to(torch.int32).contiguous(), tri_rows,
+            excl.to(torch.int32).contiguous(), tri_rows, table,
         )
 
     closest_fn, any_fn = row_major_pair(closest_planar, any_planar)

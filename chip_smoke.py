@@ -11,10 +11,22 @@ raises, exits non-zero and prints no result line.
    K1/K2, ``csrc/cull_rows.cu`` K3, ``csrc/intersect_cluster.cu`` K4-K7,
    ``csrc/cull_rowhit.cu`` X1, ``csrc/dma_min.cu`` X2) build in parallel,
    one nvcc each; build seconds, registers, shared memory and spills are
-   printed, and K3's compiled instruction mix (``cuobjdump -sass``).
+   printed, and K3's and K1/K2's compiled instruction mixes (``cuobjdump
+   -sass``).
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
    Cornell (T = 36) and a seeded random soup (T = 4,096), B0 = 4,608 rows
-   (one 768x768 wavefront) with a third of the rows dead: bitwise equal.
+   (one 768x768 wavefront) with a third of the rows dead: bitwise equal;
+   the bounds on both (the tests the kernels' warp-uniform reject leaves,
+   ``intersect_cuda.reject_counts``).
+2e. The dense pair's own wavefronts: the primary, first-bounce and NEE
+   shadow queries (and the bounce's shadow queries) of sample 0 of the
+   Cornell 768x768 frame
+   (``scenes/cornell.rtc``) and of the ``synthetic:atrium:4000`` 1280x720
+   frame (4,040 triangles: the dense path's largest scenes), recorded as
+   the integrator makes them.  K1/K2 bitwise equal to their plain versions
+   on every row; each timed by CUDA events beside its bound (K2's per lane
+   and per warp) and the kernel it replaced on the same rays
+   (REPLACED_DENSE_US).
 2b. Cluster kernels vs plain at the full atrium (481,208 triangles,
    K = 3,760 clusters of 128): the primary wavefront of the 1280x720
    ``ATRIUM_CAMERA`` frame (B0 = 7,200), one cosine-sampled bounce
@@ -78,9 +90,15 @@ raises, exits non-zero and prints no result line.
    compaction), each with a torch.profiler breakdown of one warm frame.
 3d. ``synthetic:atrium:3000000`` at 1280x720, 1 spp, k 3 through
    ``intersector auto`` (route ``stream``: 6 K3, 3 K6, 3 K7), as 3c.
+3e. ``synthetic:atrium:4000`` at 1280x720, 1 spp, k 3 through
+   ``intersector auto``: the dense pair, 3 K1 and 3 K2 launches and no
+   other, reported and profiled as 3c; then the same scene at 160x90,
+   2 spp, k 2 on the card and on the CPU, held to the atrium's render
+   bounds.
 4. Timings (CUDA events, with the card's name and power limit): every
-   kernel vs its plain version in us per launch, the visits beside the
-   row-wide walks they replaced (REPLACED_US),
+   kernel vs its plain version in us per launch (K1/K2 on phase 2's
+   queries beside their bounds and the kernels they replaced), the visits
+   beside the row-wide walks they replaced (REPLACED_US),
    with visits per warp, held equal to one replay of the exit rule a
    wavefront on every row, and the bounds of the tests the rule needs, per
    warp (and for closest queries per row, a row's slowest warp), on the
@@ -112,14 +130,17 @@ raises, exits non-zero and prints no result line.
 The line before the last is a JSON object of the kernels: for each, the
 launches of its path (K1-K7: the main-path CLI runs, counts set to 0 before
 each run and read after it, summed over the runs; X1/X2: phase 6), its
-largest |kernel - plain|, its time (X2 and its library call: kernel time by
+largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
+CUDA events over a loop of calls, their kernel time by torch.profiler
+printed beside it in phase 4; X2 and its library call: kernel time by
 torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
-ones') and its plain version's on the stated inputs, and the
-bound: the larger of the FP32 operations those inputs need (visits counted
-by the replay of the per-warp exit rule; occlusion lanes tested only up to
-their first blocker) over the
+ones') and its plain version's on the stated inputs, and the bound: the
+larger of the FP32 operations those inputs need (K1/K2: the tests the
+warp-uniform reject leaves; visits counted by the replay of the per-warp
+exit rule; occlusion lanes tested only up to their first blocker) over the
 card's unfused FP32 rate and the bytes read and written once over its
 memory rate.
+
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -152,15 +173,19 @@ BOUNCE_3M_TURNS = 6        # single timed launches of K6 on the 3M bounce wavefr
 SMALL_LMAX = 32            # lists short enough that most atrium(2_200) rows overflow
 PIXEL_ORDER_LMAX = 512     # list width for the pixel-order bounce block
 NANO_RES = (1024, 1024)    # the 19k frame, bench.py's nanosuit shape
+DENSE_ATRIUM_TRIS = 4000   # synthetic:atrium:4000: 4,040 triangles, the dense path
 
 # Bounds (H100 SXM peak rates).  With
 # -fmad=false every add and multiply is its own instruction, so the FP32
 # rate is half the 67 TFLOP/s that counts a fused multiply-add as two.
 PEAK_FP32_UNFUSED = 33.5e12    # FP32 operations/s
 PEAK_BYTES = 3.35e12           # device memory bytes/s
-# FP32 operations of one Moller-Trumbore test (csrc/mt_core.cuh mt_hit):
+# FP32 operations of one Moller-Trumbore test (csrc/mt_core.cuh mt_test):
 # p 9, a 5, |a| test 2, f 2, s 3, u 6, q 9, v 6, t 6, acceptance 6.
 MT_OPS = 54
+# Of those, the part before the kernels' warp-uniform reject (mt_front and
+# mt_u_ok): p 9, a 5, |a| test 2, f 2, s 3, u 6, u's two compares 2.
+MT_FRONT_OPS = 29
 # FP32 operations of one (lane, box) slab test of K3 (csrc/cull_rows.cu,
 # planes chosen by the sign of 1/d): per axis 2 sub, 2 mul (12); near and
 # far across axes 4; max(near, 0), the hit compare, the +0.0, the select and
@@ -230,42 +255,6 @@ def bound(ops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def make_queries(rng, lo, hi, n_tris, dev):
-    """Seeded rays over a scene's bounds, a third of the rows dead, and
-    shadow-query limits and exclusions."""
-    R = B0 * 128
-    ext = hi - lo
-    o = rng.uniform(lo - 0.1 * ext, hi + 0.1 * ext, (R, 3)).astype(np.float32)
-    d = rng.normal(size=(R, 3)).astype(np.float32)
-    live = (rng.uniform(size=B0) >= 1.0 / 3.0).astype(np.int32)
-    tmax = rng.uniform(0.0, 1.5 * float(ext.max()), R).astype(np.float32)
-    excl = rng.integers(0, n_tris, R).astype(np.int32)
-
-    def planar(x):
-        return torch.from_numpy(np.ascontiguousarray(x.T.reshape(3, B0, 128))).to(dev)
-
-    return dict(
-        live=torch.from_numpy(live).to(dev),
-        o3=planar(o),
-        d3=planar(d),
-        tmax=torch.from_numpy(tmax.reshape(B0, 128)).to(dev),
-        excl=torch.from_numpy(excl.reshape(B0, 128)).to(dev),
-    )
-
-
-def soup(rng, n, dev):
-    """A seeded soup of n small triangles in the unit cube, with random
-    attribute rows."""
-    v0 = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
-    v1 = v0 + rng.normal(scale=0.08, size=(n, 3)).astype(np.float32)
-    v2 = v0 + rng.normal(scale=0.08, size=(n, 3)).astype(np.float32)
-    attrs = rng.normal(size=(n, 32)).astype(np.float32)
-    t = [torch.from_numpy(x).to(dev) for x in (v0, v1, v2, attrs)]
-    lo = np.minimum(v0, np.minimum(v1, v2)).min(0)
-    hi = np.maximum(v0, np.maximum(v1, v2)).max(0)
-    return t, lo, hi
-
-
 def compare_kernels(ic, name, tri_rows, attrs, q):
     """Phase 2 for one scene; returns the largest |kernel - plain| seen."""
     k = ic.closest_dense(q["live"], q["o3"], q["d3"], tri_rows, attrs)
@@ -300,36 +289,139 @@ def compare_kernels(ic, name, tri_rows, attrs, q):
     return err
 
 
-def dense_bounds(ic, tri_rows, q):
-    """Bounds of K1/K2 on the phase-2 queries: MT_OPS per (live lane,
-    triangle) test for K1; for K2 the tests up to each live lane's first
-    blocker in id order (it stops there).  Bytes: rays, limits, the
-    triangle rows and the attribute rows of the distinct hit triangles
-    read once, the outputs written once."""
+def dense_bounds(ic, tri_rows, q, closest=True, occlusion=True):
+    """Bounds of K1/K2 on a query (phase 2's, or a frame's wavefront): the
+    tests of lanes of live rows that the kernels' warp-uniform reject
+    leaves (``ic.reject_counts``), MT_OPS operations each where run in full
+    and MT_FRONT_OPS where stopped after u; for K2 only up to each lane's
+    first blocker in id order (it stops there).  Bytes: rays, limits, the
+    triangle rows and the attribute rows of the distinct hit triangles read
+    once, the outputs written once.  Returns {"K1"/"K2": (bound_ms,
+    bound_by, share of the tests stopped after u)} for the kinds asked, and
+    for K2 also "K2 per warp": every lane of a warp testing up to the
+    warp's last first blocker (what a warp's lanes run when they leave
+    together)."""
     T = tri_rows.shape[0]
-    live = q["live"].bool()[:, None].expand(B0, 128).reshape(-1)
-    R = B0 * 128
-    n_live = int(live.sum())
-    t, tid, *_ = ic.closest_dense(q["live"], q["o3"], q["d3"], tri_rows,
-                                  torch.zeros((T, ic.ATTR_K), device=tri_rows.device))
-    n_hit_tris = int(torch.unique(tid[t < ic.BIG]).numel())
-    k1 = bound(MT_OPS * T * n_live, R * 24 + B0 * 4 + T * 36 + n_hit_tris * 128 + R * 144)
-    # First blocker per lane, triangle by triangle (T is small here).
-    o = tuple(q["o3"][a].reshape(1, -1) for a in range(3))
-    d = tuple(q["d3"][a].reshape(1, -1) for a in range(3))
-    first = torch.full((R,), T, dtype=torch.int64, device=tri_rows.device)
-    tm, ex = q["tmax"].reshape(-1), q["excl"].reshape(-1)
-    for base in range(0, T, 512):
-        tri = tri_rows[base:base + 512]
-        cols = tuple(tri[:, c:c + 1] for c in range(9))
-        ok, tt, _, _ = ic._mt_core(o, d, cols[0:3], cols[3:6], cols[6:9])
-        ids = torch.arange(base, base + tri.shape[0], device=tri.device)[:, None]
-        blk = ok & (tt < tm[None]) & (ids != ex[None])
-        idx = torch.where(blk, ids, T).amin(dim=0)
-        first = torch.minimum(first, idx)
-    tests = torch.clamp_max(first + 1, T)[live].sum()
-    k2 = bound(MT_OPS * int(tests), R * 33 + B0 * 4 + T * 36)
-    return k1, k2
+    nB0 = q["o3"].shape[1]
+    R = nB0 * 128
+    out = {}
+    if closest:
+        t, tid, *_ = ic.closest_dense(q["live"], q["o3"], q["d3"], tri_rows,
+                                      torch.zeros((T, ic.ATTR_K), device=tri_rows.device))
+        n_hit_tris = int(torch.unique(tid[t < ic.BIG]).numel())
+        full, front = ic.reject_counts(q["live"], q["o3"], q["d3"], tri_rows)
+        out["K1"] = (*bound(MT_OPS * full + MT_FRONT_OPS * front,
+                            R * 24 + nB0 * 4 + T * 36 + n_hit_tris * 128 + R * 144),
+                     front / max(full + front, 1))
+    for name, per_warp in (("K2", False), ("K2 per warp", True)) if occlusion else ():
+        full, front = ic.reject_counts(q["live"], q["o3"], q["d3"], tri_rows, q["tmax"],
+                                       q["excl"], per_warp=per_warp)
+        out[name] = (*bound(MT_OPS * full + MT_FRONT_OPS * front, R * 33 + nB0 * 4 + T * 36),
+                     front / max(full + front, 1))
+    return out
+
+
+def check_wavefronts(ic, name, rows, attrs, table, waves):
+    """K1 (primary, bounce) or K2 (shadow) bitwise equal to its plain
+    version on every row of each wavefront; returns the largest
+    |kernel - plain| and prints the live rows and hit or occluded shares."""
+    err = 0.0
+    for wname, q in waves.items():
+        nB0 = q["o3"].shape[1]
+        if "tmax" in q:
+            got = ic.any_dense(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows, table)
+            want = ic.any_dense_plain(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows)
+            sync()
+            bad = [] if torch.equal(got, want) else ["occluded"]
+            share = float(got.float().mean())
+        else:
+            got = ic.closest_dense(q["live"], q["o3"], q["d3"], rows, attrs, table)
+            want = ic.closest_dense_plain(q["live"], q["o3"], q["d3"], rows, attrs)
+            sync()
+            bad = [f for f, a, b in zip(("t", "id", "u", "v", "attrs"), got, want)
+                   if not torch.equal(bits(a), bits(b))]
+            err = max(err, max(max_err(a.float(), b.float()) for a, b in zip(got, want)))
+            share = float((got[0] < ic.BIG).float().mean())
+        print(f"[dense] {name} {wname}: B0={nB0} live rows {int(q['live'].sum())}, "
+              f"{'occluded' if 'tmax' in q else 'hit'} share {share:.4f}; "
+              f"{'K2' if 'tmax' in q else 'K1'} vs plain on every row: mismatched={bad or 'none'}")
+        if bad:
+            raise AssertionError(f"{name} {wname}: kernel differs from plain in {bad}")
+    return err
+
+
+# The K1/K2 that this design replaced (one 128-thread block a row, one ray
+# a thread, the table staged through shared memory 256 triangles at a time)
+# on the same seeded queries and wavefronts: (us a call by CUDA events over
+# a loop of calls, its device time by torch.profiler), each the mean of two
+# turns of chiaroscuro_tpu_torch/tools/dense_compare.py run on a checkout of
+# that design, in turns with this one, NVIDIA H100 80GB HBM3 at 700.00 W.
+REPLACED_DENSE_US = {
+    ("K1", "cornell queries"): (67.4, 54.1), ("K2", "cornell queries"): (49.2, 43.2),
+    ("K1", "soup queries"): (4547.5, 4533.1), ("K2", "soup queries"): (4523.2, 4502.5),
+    ("K1", "cornell 768x768 primary"): (80.5, 67.4),
+    ("K1", "cornell 768x768 bounce"): (76.9, 73.9),
+    ("K2", "cornell 768x768 shadow"): (65.9, 62.7),
+    ("K2", "cornell 768x768 bounce shadow"): (71.3, 68.3),
+    ("K1", f"atrium:{DENSE_ATRIUM_TRIS} 1280x720 primary"): (9945.9, 9965.7),
+    ("K1", f"atrium:{DENSE_ATRIUM_TRIS} 1280x720 bounce"): (11314.4, 11245.0),
+    ("K2", f"atrium:{DENSE_ATRIUM_TRIS} 1280x720 shadow"): (9970.0, 9937.1),
+    ("K2", f"atrium:{DENSE_ATRIUM_TRIS} 1280x720 bounce shadow"): (11181.1, 11113.1),
+}
+
+
+def time_dense(ic, card, label, rows, attrs, table, q, bounds, plain=False):
+    """K1 and/or K2 (the kinds ``bounds`` holds) on one query by CUDA
+    events over a loop of calls, in turns with the plain version where
+    ``plain``, printed beside the kernel's own device time by
+    torch.profiler (at Cornell's 36 triangles a launch takes less device
+    time than the wrapper's host work, which the loop also counts), the
+    bounds and the replaced kernel's loop on the same rays
+    (REPLACED_DENSE_US).  Returns {kind: (the loop's us, plain us or
+    None)}."""
+    T = rows.shape[0]
+    reps = 50 if T < 512 else 10
+    args = (q["live"], q["o3"], q["d3"])
+    out = {}
+    for kind in ("K1", "K2"):
+        if kind not in bounds:
+            continue
+        if kind == "K1":
+            fns = {"kernel": lambda: ic.closest_dense(*args, rows, attrs, table),
+                   "plain": lambda: ic.closest_dense_plain(*args, rows, attrs)}
+        else:
+            fns = {"kernel": lambda: ic.any_dense(*args, q["tmax"], q["excl"], rows, table),
+                   "plain": lambda: ic.any_dense_plain(*args, q["tmax"], q["excl"], rows)}
+        if not plain:
+            del fns["plain"]
+        t = time_turns(fns, {"kernel": reps, "plain": 1})
+        us = t["kernel"][0]
+        dev_us, n_dev = device_us(fns["kernel"], reps, "dense_kernel")
+        parts = [f"kernel {us:.1f} us (turns {t['kernel'][1][0]:.1f}, {t['kernel'][1][1]:.1f}; "
+                 f"device time {'not measured' if dev_us is None else f'{dev_us:.1f} us'} "
+                 f"a launch, {n_dev} of {reps} launches recorded)"]
+        for name in (kind, f"{kind} per warp"):
+            if name in bounds:
+                b_ms, b_by, stop = bounds[name]
+                parts.append(f"bound{' per warp' if 'warp' in name else ''} {b_ms * 1e3:.1f} us "
+                             f"({b_by}; {stop:.4f} of the tests stopped after u; "
+                             f"{100 * b_ms * 1e3 / us:.1f}% of it by the loop"
+                             + ("" if dev_us is None
+                                else f", {100 * b_ms * 1e3 / dev_us:.1f}% by device time")
+                             + ")")
+        old = REPLACED_DENSE_US.get((kind, label))
+        if old is not None:
+            parts.append(f"the kernel it replaced {old[0]} us, device time {old[1]} us "
+                         f"({old[0] / us:.2f}x this one by the loop"
+                         + ("" if dev_us is None else f", {old[1] / dev_us:.2f}x by device time")
+                         + f"; {100 * bounds[kind][0] * 1e3 / old[0]:.1f}% of the bound "
+                         f"by its loop, {100 * bounds[kind][0] * 1e3 / old[1]:.1f}% by its "
+                         "device time)")
+        if plain:
+            parts.append(f"plain {t['plain'][0]:.1f} us")
+        print(f"[dense] {card}: {kind} {label} T={T} B0={q['o3'].shape[1]}: " + "; ".join(parts))
+        out[kind] = (us, t["plain"][0] if plain else None)
+    return out
 
 
 def time_us(fn, reps):
@@ -354,13 +446,6 @@ def time_turns(fns, reps):
     first = {n: time_us(f, reps[n]) for n, f in fns.items()}
     second = {n: time_us(f, reps[n]) for n, f in reversed(list(fns.items()))}
     return {n: ((first[n] + second[n]) / 2, (first[n], second[n])) for n in fns}
-
-
-def time_pair(fn_kernel, fn_plain, reps_kernel=50, reps_plain=3):
-    """Microseconds per launch, plain/kernel/kernel/plain, CUDA events."""
-    t = time_turns({"plain": fn_plain, "kernel": fn_kernel},
-                   {"plain": reps_plain, "kernel": reps_kernel})
-    return t["kernel"][0], t["plain"][0], t["kernel"][1], t["plain"][1]
 
 
 def assert_render_close(img, ref, what, mean_rel=1e-4, outlier_share=0.005,
@@ -393,11 +478,6 @@ def reset(*counts):
     for c in counts:
         for key in c:
             c[key] = 0
-
-
-def cam_tokens(cam):
-    return ["VP", *map(str, cam["eye"]), "LA", *map(str, cam["center"]),
-            "UP", *map(str, cam["up"]), "yview", str(cam["yview"])]
 
 
 # ---------------------------------------------------------------------------
@@ -939,10 +1019,11 @@ def check_atrium_render(renderer, exported, launches, want, what, res):
     blocks = img.reshape(yres // 4, 4, xres // 4, 4, 3).mean(axis=(1, 3))
     lit = float(np.median(blocks.max(axis=-1)))
     print(f"[render] {what} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}: "
-          f"launches={launches} route={renderer.intersectors[0].route} mean={float(img.mean())} "
+          f"launches={launches} route={getattr(renderer.intersectors[0], 'route', 'dense')} "
+          f"mean={float(img.mean())} "
           f"median max over 4x4 blocks={lit} (per pixel {float(np.median(img.max(axis=-1)))}, "
           f"lit pixels {float((img.max(axis=-1) > 1e-3).mean()):.3f}) "
-          f"compaction={renderer.intersectors[0].prefers_compaction}")
+          f"compaction={getattr(renderer.intersectors[0], 'prefers_compaction', False)}")
     if {k: launches[k] for k in want} != want or any(
             n for k, n in launches.items() if k not in want):
         raise AssertionError(f"{what} launches {launches} != {want}")
@@ -980,10 +1061,8 @@ def profile(fn, label, card):
             layer = "K4/K6 closest_visits"
         elif "any_visits_kernel" in name:
             layer = "K5/K7 any_visits"
-        elif "closest_dense_kernel" in name:
-            layer = "K1 closest_dense"
-        elif "any_dense_kernel" in name:
-            layer = "K2 any_dense"
+        elif "dense_kernel" in name:
+            layer = "K1 closest_dense" if "losest" in name else "K2 any_dense"
         elif "sort" in name.lower() or "radix" in name.lower():
             layer = "sorts"
         elif "index" in name.lower() or "gather" in name.lower() or "scatter" in name.lower():
@@ -1009,9 +1088,10 @@ def profile(fn, label, card):
 
 def sass_mix(path, kernel, per, what="box"):
     """Print the opcode counts of each compiled variant of ``kernel`` in the
-    library at ``path`` (``cuobjdump -sass``), and each count / ``per``: for
-    K3 the kernel's loop over a chunk of ``per`` boxes is fully unrolled, so
-    that is the count per box (the code outside the loop adds a few)."""
+    library at ``path`` (``cuobjdump -sass``), and where ``per`` > 1 each
+    count / ``per``: for K3 the kernel's loop over a chunk of ``per`` boxes
+    is fully unrolled, so that is the count per box (the code outside the
+    loop adds a few)."""
     from chiaroscuro_tpu_torch.ops.cuda_build import nvcc
 
     tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
@@ -1033,17 +1113,21 @@ def sass_mix(path, kernel, per, what="box"):
         if kernel not in name:
             continue
         keys = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "SEL", "FSEL", "LOP3", "ISETP",
-                "REDUX", "VOTE", "LDS", "LDG", "LD", "STS", "BAR", "SYNCS", "UBLKCP", "CCTL")
-        parts = ", ".join(f"{k} {mix.get(k, 0)} ({mix.get(k, 0) / per:.2f})" for k in keys)
-        print(f"[build] sass {name}: {sum(mix.values())} instructions; per {what} of {per}: "
-              f"{parts}")
+                "REDUX", "VOTE", "LDS", "LDG", "LD", "STS", "STG", "BAR", "SYNCS", "UBLKCP",
+                "CCTL", "MUFU", "FCHK", "CALL", "BRA", "SHFL", "ATOMG")
+        parts = ", ".join(f"{k} {mix.get(k, 0)}" + (f" ({mix.get(k, 0) / per:.2f})" if per > 1
+                                                     else "") for k in keys)
+        print(f"[build] sass {name}: {sum(mix.values())} instructions"
+              + (f"; per {what} of {per}" if per > 1 else "") + f": {parts}")
 
 
 def device_us(fn, reps, name=None):
-    """Device microseconds per call of ``fn`` over ``reps`` calls, by
-    torch.profiler: the summed time of the CUDA kernels the calls ran (only
-    those whose name holds ``name``, where given); None where the profiler
-    recorded no device time."""
+    """Device time of ``fn`` over ``reps`` calls by torch.profiler:
+    (microseconds a kernel, the kernels recorded), over the CUDA kernels
+    the calls ran (only those whose name holds ``name``, where given);
+    (None, 0) where it recorded none.  The profiler can record fewer
+    kernels than the calls ran, so the count is printed beside each reading
+    and the mean is taken over the kernels it recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1053,10 +1137,12 @@ def device_us(fn, reps, name=None):
         for _ in range(reps):
             fn()
         sync()
-    us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA
-             and (name is None or name in e.key))
-    return us / reps if us > 0 else None
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA
+              and (name is None or name in e.key)]
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in events)
+    n = sum(int(e.count) for e in events)
+    return (us / n if us > 0 and n else None), n
 
 
 def profile_frame(renderer, card):
@@ -1142,6 +1228,8 @@ def main() -> int:
     from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA, atrium
     from chiaroscuro_tpu_torch.tools import cull_experiments as xc
     from chiaroscuro_tpu_torch.tools import dma_min as dm
+    from chiaroscuro_tpu_torch.tools.dense_compare import (cam_tokens, dense_wavefronts,
+                                                           make_queries, soup)
 
     t_start = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1178,6 +1266,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
     sass_mix(cc.build_cull()[1]["path"], "cull_rows_kernel", CULL_CHUNK)
+    # K1/K2: each kernel's whole instruction mix (MUFU and CALL show how 1/a
+    # compiles, VOTE the warp votes).
+    sass_mix(ic.build()[1]["path"], "dense_kernel", 1)
     # The visits at M = 128: the visit is inlined twice (phase 1 and phase
     # 2), each an unrolled loop body of 8 triangles (two 4-triangle loads),
     # so counts / 16 approximate the instructions a triangle (the walk adds
@@ -1203,10 +1294,46 @@ def main() -> int:
             compare_kernels(ic, "soup", s_rows, s_attrs, s_q),
         )
         dense_bound = dense_bounds(ic, c_rows, c_q)
+        soup_bound = dense_bounds(ic, s_rows, s_q)
+    for what, bd in (("cornell", dense_bound), ("soup", soup_bound)):
+        print(f"[kernels] bounds on the {what} queries: " + ", ".join(
+            f"{k} {b_ms * 1e3:.1f} us ({b_by}; {stop:.4f} of the tests stopped after u)"
+            for k, (b_ms, b_by, stop) in bd.items()))
     print("[kernels] K1/K2 equal their plain versions bitwise")
     sync()
 
     lap("phase 2")
+    # --- phase 2e: the dense pair's own wavefronts ---------------------------
+    cam = cam_tokens(ATRIUM_CAMERA)
+    cornell_rtc = os.path.join(repo, "scenes", "cornell.rtc")
+    a4_tokens = ["input", f"synthetic:atrium:{DENSE_ATRIUM_TRIS}", "intersector", "auto",
+                 "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
+                 "k", str(ATRIUM_K), *cam]
+    with torch.no_grad():
+        for label, cfg_ in (("cornell 768x768", RenderConfig.from_rtc(cornell_rtc)),
+                            (f"atrium:{DENSE_ATRIUM_TRIS} 1280x720",
+                             RenderConfig.from_rtc(cornell_rtc, a4_tokens))):
+            sc = load_scene(cfg_, dev)
+            rows_ = ic._prep_tris(sc.tri_v0, sc.tri_v1, sc.tri_v2)
+            attrs_, table_ = ic._prep_attrs(sc), ic.pad_table(rows_)
+            waves_ = dense_wavefronts(cfg_, sc, make_intersectors, render_samples)
+            err = max(err, check_wavefronts(ic, label, rows_, attrs_, table_, waves_))
+            bounds_ = {w: dense_bounds(ic, rows_, q, closest="tmax" not in q,
+                                       occlusion="tmax" in q) for w, q in waves_.items()}
+            print(f"[dense] {label}: T={sc.n_tris}; bounds " + ", ".join(
+                f"{w} {k} {b[0] * 1e3:.1f} us ({b[1]}; {b[2]:.4f} stopped after u)"
+                for w, bd in bounds_.items() for k, b in bd.items()))
+            for w, q in waves_.items():
+                time_dense(ic, card, f"{label} {w}", rows_, attrs_, table_, q, bounds_[w])
+            n_dense_tris = sc.n_tris
+            del sc, rows_, attrs_, table_, waves_
+    if n_dense_tris != 4040:
+        raise AssertionError(f"synthetic:atrium:{DENSE_ATRIUM_TRIS} is no longer 4,040 triangles")
+    torch.cuda.empty_cache()
+    print("[dense] K1/K2 bitwise equal to their plain versions on every row of the "
+          "Cornell and atrium:4000 wavefronts")
+
+    lap("phase 2e")
     # --- phase 2b: streaming cluster kernels vs plain (481k) -------------------
     t0 = time.perf_counter()
     big = build_scene_tensors(atrium(480_000), device=dev)
@@ -1401,7 +1528,6 @@ def main() -> int:
 
     lap("phase 3")
     # --- phase 3b: 481k atrium render, atrium(2_200) card vs CPU ---------------
-    cam = cam_tokens(ATRIUM_CAMERA)
     a_renderer, a_launches, a_total, a_mem, a_exported = cli_render(
         cli, repo, counts,
         ["input", "synthetic:atrium", "intersector", "auto", "xres", str(ATRIUM_RES[0]),
@@ -1502,28 +1628,41 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     lap("phase 3d")
+    # --- phase 3e: the dense path's largest scene through auto ----------------
+    d_renderer, d_launches, d_total, d_mem, d_exported = cli_render(
+        cli, repo, counts, a4_tokens, "atrium_4000.exr")
+    add_launches(d_launches)
+    check_atrium_render(d_renderer, d_exported, d_launches,
+                        {"closest": ATRIUM_K, "any": ATRIUM_K},
+                        f"atrium:{DENSE_ATRIUM_TRIS}", ATRIUM_RES)
+    report_frame(card, f"atrium:{DENSE_ATRIUM_TRIS} 1280x720", d_renderer, d_total, d_mem)
+    profile_frame(d_renderer, card)
+    del d_renderer, d_exported
+    torch.cuda.empty_cache()
+    d_tokens = ["input", f"synthetic:atrium:{DENSE_ATRIUM_TRIS}", "xres", "160", "yres", "90",
+                "samples", "2", "k", "2", *cam]
+    d_imgs = {}
+    for platform in ("cuda", "cpu"):
+        c = RenderConfig.from_tokens(d_tokens + ["platform", platform])
+        s = load_scene(c, dev if platform == "cuda" else torch.device("cpu"))
+        reset(*counts)
+        with torch.no_grad():
+            d_imgs[platform] = render_image(s, c).cpu().numpy()
+        if platform == "cuda":
+            used = {k: n for c_ in counts for k, n in c_.items() if n}
+            if used != {"closest": 4, "any": 4}:
+                raise AssertionError(f"atrium:{DENSE_ATRIUM_TRIS} 160x90 launched {used}")
+    sync()
+    assert_render_close(d_imgs["cuda"], d_imgs["cpu"],
+                        f"atrium:{DENSE_ATRIUM_TRIS} 160x90 (dense)", flipped_mean_rel=1e-3)
+
+    lap("phase 3e")
     # --- phase 4: timings ---------------------------------------------------------
-    timings = {}
     with torch.no_grad():
-        for name, rows, attrs_, q in (
-            ("cornell", c_rows, c_attrs, c_q), ("soup", s_rows, s_attrs, s_q),
-        ):
-            args = (q["live"], q["o3"], q["d3"])
-            sargs = args + (q["tmax"], q["excl"], rows)
-            timings[("closest", name)] = time_pair(
-                lambda: ic.closest_dense(*args, rows, attrs_),
-                lambda: ic.closest_dense_plain(*args, rows, attrs_),
-            )
-            timings[("any", name)] = time_pair(
-                lambda: ic.any_dense(*sargs), lambda: ic.any_dense_plain(*sargs),
-            )
-    for (kern, name), (k_us, p_us, ks, ps) in timings.items():
-        print(f"[timing] {card}: {kern}_dense {name} T="
-              f"{36 if name == 'cornell' else SOUP_TRIS} B0={B0}: kernel {k_us:.1f} us "
-              f"(turns {ks[0]:.1f}, {ks[1]:.1f}), plain {p_us:.1f} us "
-              f"(turns {ps[0]:.1f}, {ps[1]:.1f}) per launch")
-    for kid, (b_ms, b_by) in zip(("K1", "K2"), dense_bound):
-        print(f"[timing] {card}: {kid} bound on the cornell queries {b_ms * 1e3:.1f} us ({b_by})")
+        t_cornell = time_dense(ic, card, "cornell queries", c_rows, c_attrs,
+                               ic.pad_table(c_rows), c_q, dense_bound, plain=True)
+        time_dense(ic, card, "soup queries", s_rows, s_attrs, ic.pad_table(s_rows), s_q,
+                   soup_bound, plain=True)
     print_cluster_timings(card, "atrium 481k", ctimings)
     print_cluster_timings(card, f"atrium:{BIG3M_TRIS}", htimings)
     print_cluster_timings(card, f"atrium:{MID_TRIS}", mtimings)
@@ -1649,7 +1788,7 @@ def main() -> int:
     x2_t = time_turns(x2_fns, {"plain": 10, "x2": 100, "library": 100})
     # The kernels' own time over the same loops, apart from the host's
     # dispatch (which the event loop includes): X2's kernel by name, and
-    # every kernel the library call runs.
+    # every kernel the library call runs (one a call, as the count shows).
     x2_dev = {"x2": device_us(x2_fns["x2"], 100, "dma_min_kernel"),
               "library": device_us(x2_fns["library"], 100)}
     # X2 reads trip's K distinct blocks once and adds trip x M x W values.
@@ -1658,8 +1797,8 @@ def main() -> int:
     print(f"[timing] {card}: X2 dma_min trip {dm.K}, loop of calls by CUDA events: "
           + ", ".join(f"{n} {m:.2f} us (turns {a:.2f}, {c:.2f})" for n, (m, (a, c)) in x2_t.items())
           + "; kernel time by torch.profiler: "
-          + ", ".join(f"{n} {'not measured' if u is None else f'{u:.2f} us'}"
-                      for n, u in x2_dev.items())
+          + ", ".join(f"{n} {'not measured' if u is None else f'{u:.2f} us'} a kernel "
+                      f"({k} kernels recorded for 100 calls)" for n, (u, k) in x2_dev.items())
           + f"; bound {x2_bound[0] * 1e3:.3f} us ({x2_bound[1]})")
     lap("phase 6")
     # Launches above for comparison and timing do not count: the counts
@@ -1680,18 +1819,17 @@ def main() -> int:
 
     # X2 and its library call by their kernel time where the profiler gave
     # it, else by the event loop.
-    x2_ms = {n: (x2_t[n][0] if u is None else u) / 1e3 for n, u in x2_dev.items()}
-    ct = timings[("closest", "cornell")]
-    at = timings[("any", "cornell")]
+    x2_ms = {n: (x2_t[n][0] if u is None else u) / 1e3 for n, (u, _) in x2_dev.items()}
+    ct, at = t_cornell["K1"], t_cornell["K2"]
     cull_t = ctimings[("cull", "primary")]
     x1_t = x1_times["481k primary"]
     kernels = [
         entry("closest_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
               "chiaroscuro_tpu/ops/intersect_pallas.py:206", err, ct[0] / 1e3, ct[1] / 1e3,
-              dense_bound[0]),
+              dense_bound["K1"]),
         entry("any_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
               "chiaroscuro_tpu/ops/intersect_pallas.py:339", err, at[0] / 1e3, at[1] / 1e3,
-              dense_bound[1]),
+              dense_bound["K2"]),
         entry("cull", "cuda", "chiaroscuro_tpu_torch/csrc/cull_rows.cu",
               "chiaroscuro_tpu/ops/cluster_pallas.py:310", cluster_errs["cull"],
               cull_t["us"] / 1e3, cull_t["plain_us"] / 1e3, cull_t["bound"]),

@@ -43,38 +43,82 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _soup_tris(rng, n, dev):
+    v0 = rng.uniform(0, 1, (n, 3))
+    v = [v0, v0 + rng.normal(scale=0.1, size=(n, 3)), v0 + rng.normal(scale=0.1, size=(n, 3))]
+    return [torch.tensor(x, dtype=torch.float32, device=dev) for x in v]
+
+
+# K1/K2 cases.  "soup<T>": T random triangles (0, 1, 36, the resident 4,096,
+# and past it 4,097 and 9,000, where the kernels sweep the table in chunks);
+# "ties": 500 triangles twice over, ids i and i + 500 tying exactly;
+# "rows1"/"rows7"/"round": B0 of 1, 7 and one more than a round of the
+# persistent grid's warps; "dead": every row dead; "blocked": a first
+# triangle in front of every ray.
+DENSE_CASES = ["cornell", "soup1000", "soup0", "soup1", "soup36", "soup4096", "soup4097",
+               "soup9000", "ties", "rows1", "rows7", "round", "dead", "blocked"]
+
+
 def _tables(name, dev):
     rng = np.random.default_rng(9)
+    nB0 = B0
     if name == "cornell":
         s = build_scene_tensors(cornell_box(), device=dev)
         v = (s.tri_v0, s.tri_v1, s.tri_v2)
         attrs = ic._prep_attrs(s)
     else:
-        n = 1000
-        v0 = rng.uniform(0, 1, (n, 3))
-        v = [v0, v0 + rng.normal(scale=0.1, size=(n, 3)), v0 + rng.normal(scale=0.1, size=(n, 3))]
-        v = [torch.tensor(x, dtype=torch.float32, device=dev) for x in v]
-        attrs = torch.tensor(rng.normal(size=(n, ic.ATTR_K)), dtype=torch.float32, device=dev)
+        n = int(name[4:]) if name.startswith("soup") else 1000
+        v = _soup_tris(rng, n if name != "ties" else 500, dev)
+        if name == "ties":
+            v = [torch.cat([x, x]) for x in v]
+        if name == "blocked":
+            # Triangle 0 spans z = 2 far past the unit cube, facing rays
+            # that leave z = -1 along +z.
+            big = [torch.tensor([[-50.0, -50.0, 2.0]], device=dev),
+                   torch.tensor([[150.0, -50.0, 2.0]], device=dev),
+                   torch.tensor([[-50.0, 150.0, 2.0]], device=dev)]
+            v = [torch.cat([b, x[1:]]) for b, x in zip(big, v)]
+        attrs = torch.tensor(rng.normal(size=(v[0].shape[0], ic.ATTR_K)), dtype=torch.float32,
+                             device=dev)
+        if name in ("rows1", "rows7"):
+            nB0 = int(name[4:])
+        elif name == "round":
+            # One more than a multiple of the rows every resident warp of a
+            # one-block- or two-block-an-SM grid takes in one pass (32 warps
+            # a block, 4 warps a row).
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            nB0 = 2 * sms * 8 + 1
     rows = ic._prep_tris(*v)
-    pts = torch.cat(v).cpu().numpy()
-    lo, hi = pts.min(0), pts.max(0)
+    T = rows.shape[0]
+    pts = torch.cat(v).cpu().numpy() if T else np.zeros((1, 3))
+    lo, hi = pts.min(0), pts.max(0) + (0.0 if T else 1.0)
     ext = (hi - lo)[:, None, None]
-    o = rng.uniform(lo[:, None, None] - 0.1 * ext, hi[:, None, None] + 0.1 * ext, (3, B0, 128))
-    q = dict(
-        o3=o, d3=rng.normal(size=(3, B0, 128)),
-        tmax=rng.uniform(0, 1.5 * float(ext.max()), (B0, 128)),
-    )
+    o = rng.uniform(lo[:, None, None] - 0.1 * ext, hi[:, None, None] + 0.1 * ext, (3, nB0, 128))
+    d = rng.normal(size=(3, nB0, 128))
+    tmax = rng.uniform(0, 1.5 * float(ext.max()), (nB0, 128))
+    excl = rng.integers(0, max(T, 1), (nB0, 128))
+    if name == "blocked":
+        o[:2] = rng.uniform(0, 1, (2, nB0, 128))
+        o[2] = -1.0
+        d[2] = np.abs(d[2]) + 1.0
+        tmax[:] = 1e6
+        excl[:] = -1
+    q = dict(o3=o, d3=d, tmax=tmax)
     q = {k: torch.tensor(x, dtype=torch.float32, device=dev) for k, x in q.items()}
-    q["excl"] = torch.tensor(rng.integers(0, rows.shape[0], (B0, 128)), dtype=torch.int32, device=dev)
-    live = torch.ones(B0, dtype=torch.int32, device=dev)
+    q["excl"] = torch.tensor(excl, dtype=torch.int32, device=dev)
+    live = torch.ones(nB0, dtype=torch.int32, device=dev)
     live[1::3] = 0
+    if name == "dead":
+        live[:] = 0
     q["live"] = live
     return rows, attrs, q
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cornell", "soup1000"])
+@pytest.mark.parametrize("name", DENSE_CASES)
 def test_kernels_equal_plain_on_card(name, cuda_device):
+    """K1/K2 bitwise equal to their plain versions, one launch each, with
+    the table the wrappers make and with one made beforehand."""
     rows, attrs, q = _tables(name, cuda_device)
     before = dict(ic.LAUNCHES)
     got = ic.closest_dense(q["live"], q["o3"], q["d3"], rows, attrs)
@@ -83,13 +127,56 @@ def test_kernels_equal_plain_on_card(name, cuda_device):
     assert ic.LAUNCHES == {"closest": before["closest"] + 1, "any": before["any"] + 1}
     want = ic.closest_dense_plain(q["live"], q["o3"], q["d3"], rows, attrs)
     for field, a, b in zip(("t", "id", "u", "v", "attrs"), got, want):
-        assert torch.equal(a, b), field
+        assert torch.equal(_bits(a), _bits(b)), field
     assert torch.equal(
         occ, ic.any_dense_plain(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows)
     )
+    table = ic.pad_table(rows)
+    again = ic.closest_dense(q["live"], q["o3"], q["d3"], rows, attrs, table)
+    for a, b in zip(again, got):
+        assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(ic.any_dense(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows,
+                                    table), occ)
     hit = got[0] < ic.BIG
-    assert 0.05 < float(hit.float().mean()) < 0.95
-    assert not bool(hit[1::3].any()) and not bool(occ[1::3].any())
+    live = q["live"].bool()
+    assert not bool(hit[~live].any()) and not bool(occ[~live].any())
+    if name in ("cornell", "soup1000", "soup4096", "soup4097", "soup9000", "ties", "round"):
+        assert 0.05 < float(hit[live].float().mean()) < 0.95
+        assert 0.05 < float(occ[live].float().mean()) < 0.95
+    if name in ("soup0", "dead"):
+        assert not bool(hit.any()) and not bool(occ.any())
+    if name == "ties":
+        assert bool((got[1][hit] < rows.shape[0] // 2).all())
+    if name == "blocked":
+        assert bool(occ[live].all())
+
+
+@pytest.mark.cuda
+def test_kernels_on_concurrent_streams(cuda_device):
+    """K1/K2 launched in turns on two streams, each stream's launches
+    queued behind the other's, stay bitwise equal to their plain versions:
+    each stream has its own work counters."""
+    inputs = [_tables(name, cuda_device) for name in ("soup4096", "cornell")]
+    want = [(ic.closest_dense_plain(q["live"], q["o3"], q["d3"], rows, attrs),
+             ic.any_dense_plain(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows))
+            for rows, attrs, q in inputs]
+    tables = [ic.pad_table(rows) for rows, _, _ in inputs]
+    streams = [torch.cuda.Stream(cuda_device) for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[] for _ in inputs]
+    for _ in range(3):
+        for k, ((rows, attrs, q), table, stream) in enumerate(zip(inputs, tables, streams)):
+            with torch.cuda.stream(stream):
+                got[k].append((
+                    ic.closest_dense(q["live"], q["o3"], q["d3"], rows, attrs, table),
+                    ic.any_dense(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows,
+                                 table)))
+    torch.cuda.synchronize()
+    for k, (closest, occ) in enumerate(want):
+        for hit, blocked in got[k]:
+            for a, b in zip(hit, closest):
+                assert torch.equal(_bits(a), _bits(b))
+            assert torch.equal(blocked, occ)
 
 
 @pytest.mark.cuda

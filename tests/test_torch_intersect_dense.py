@@ -61,8 +61,20 @@ def _soup(n, seed):
     return dataclasses.replace(sa, n_tris=n, **rep)
 
 
+def _ties(n, seed):
+    """A soup of n triangles whose geometry is that of its first n // 2,
+    twice over: ids i and i + n // 2 tie exactly in t, u and v, and their
+    attribute rows differ, so the attributes show which id won."""
+    sa = _soup(n, seed)
+    half = n // 2
+    rep = {k: jnp.concatenate([getattr(sa, k)[:half]] * 2)
+           for k in ("tri_v0", "tri_v1", "tri_v2")}
+    return dataclasses.replace(sa, **rep)
+
+
 SCENES = {"cornell": lambda: build_scene_arrays(jax_cornell_box()),
-          "soup300": lambda: _soup(300, 7)}
+          "soup300": lambda: _soup(300, 7),
+          "ties": lambda: _ties(300, 8)}
 
 
 def _port_scene(sa):
@@ -113,6 +125,10 @@ def test_plain_closest_matches_pallas(case):
     tie = np.isclose(t.numpy(), np.asarray(ref.t), rtol=1e-6)
     assert (same | tie)[hl].all()
     assert same[hl].mean() > 0.99
+    half = sa.n_tris // 2
+    if np.array_equal(np.asarray(sa.tri_v0[:half]), np.asarray(sa.tri_v0[half:2 * half])):
+        # Exact ties (the "ties" scene): both pick the lower of two ids.
+        assert same[hl].all() and (tid.numpy()[hl] < half).all()
     h = hl & same
     for got, r in ((t, ref.t), (u, ref.u), (v, ref.v)):
         np.testing.assert_allclose(got.numpy()[h], np.asarray(r)[h], rtol=2e-6, atol=1e-6)
@@ -157,6 +173,125 @@ def test_wrappers_take_plain_versions_on_cpu(case):
     assert torch.equal(occ, ic.any_dense_plain(q["live"].reshape(-1), q["o3"], q["d3"],
                                                q["tmax"], q["excl"], rows))
     assert ic.LAUNCHES == before == {"closest": 0, "any": 0}
+
+
+def test_kernel_table_holds_the_rows_and_is_made_once_a_pair(monkeypatch):
+    """The kernels' padded (T, 12) table holds exactly the (T, 9) rows
+    v0|e1|e2, with zeros between, detached; the intersector pair makes it
+    once, not once a query."""
+    sa = _soup(300, 7)
+    scene = _port_scene(sa)
+    rows = ic._prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    table = ic.pad_table(rows.clone().requires_grad_())
+    assert table.shape == (300, 12) and table.dtype == torch.float32
+    assert table.is_contiguous() and not table.requires_grad
+    tri = table.reshape(300, 3, 4)
+    assert torch.equal(tri[:, :, :3].reshape(300, 9), rows)
+    assert torch.equal(tri[:, :, 3], torch.zeros(300, 3))
+    assert ic.pad_table(rows[:0]).shape == (0, 12)
+
+    made, passed = [], []
+    real = {k: getattr(ic, k) for k in ("pad_table", "closest_dense", "any_dense")}
+
+    def counting(tri_rows):
+        made.append(real["pad_table"](tri_rows))
+        return made[-1]
+
+    def closest(*args):
+        passed.append(args[5])
+        return real["closest_dense"](*args)
+
+    def any_(*args):
+        passed.append(args[6])
+        return real["any_dense"](*args)
+
+    monkeypatch.setattr(ic, "pad_table", counting)
+    monkeypatch.setattr(ic, "closest_dense", closest)
+    monkeypatch.setattr(ic, "any_dense", any_)
+    cf, af = make_intersectors(scene, "dense")
+    q = {k: torch.from_numpy(v) for k, v in _queries(sa, 5).items()}
+    for _ in range(2):
+        cf.planar_fn(q["o3"], q["d3"], live=q["live"])
+        af.planar_fn(q["o3"], q["d3"], q["tmax"], q["excl"], live=q["live"])
+    assert len(made) == 1 and len(passed) == 4
+    assert all(t is made[0] for t in passed)
+    assert torch.equal(made[0], table)
+
+
+def _brute_reject_counts(live, o3, d3, rows, tmax=None, excl=None, per_warp=False):
+    """reject_counts by loops over groups of 32 lanes, lanes and triangles,
+    each test in numpy float32 in the kernels' operand order."""
+    f32 = np.float32
+    o = o3.numpy().reshape(3, -1).T
+    d = d3.numpy().reshape(3, -1).T
+    tri = rows.numpy()
+    T, R = tri.shape[0], o.shape[0]
+
+    def test(lane, j):
+        (ox, oy, oz), (dx, dy, dz) = o[lane], d[lane]
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[j]
+        px, py, pz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
+        a = e1x * px + e1y * py + e1z * pz
+        nonpar = abs(a) >= f32(ic.FLT_EPS)
+        f = f32(1.0) / (a if nonpar else f32(1.0))
+        sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+        u = f * (sx * px + sy * py + sz * pz)
+        qx, qy, qz = sy * e1z - sz * e1y, sz * e1x - sx * e1z, sx * e1y - sy * e1x
+        v = f * (dx * qx + dy * qy + dz * qz)
+        t = f * (e2x * qx + e2y * qy + e2z * qz)
+        u_ok = nonpar and f32(0) <= u <= f32(1)
+        return u_ok, u_ok and v >= 0 and u + v <= 1 and t >= 0, t
+
+    last = {}
+    for lane in range(R):
+        last[lane] = T - 1
+        if tmax is not None:
+            for j in range(T):
+                _, ok, t = test(lane, j)
+                if ok and t < tmax.reshape(-1)[lane] and j != int(excl.reshape(-1)[lane]):
+                    last[lane] = j
+                    break
+    full = front = 0
+    for g in range(0, R, 32):
+        if not int(live[g // 128]):
+            continue
+        for j in range(T):
+            voters = [lane for lane in range(g, g + 32) if j <= last[lane]]
+            lanes = voters
+            if per_warp:
+                lanes = list(range(g, g + 32)) if voters else []
+            vote = any(test(lane, j)[0] for lane in voters)
+            full += len(lanes) if vote else 0
+            front += 0 if vote else len(lanes)
+    return full, front
+
+
+@pytest.mark.parametrize("kind", ["closest", "any", "any per warp"])
+def test_reject_counts_match_a_brute_count(kind):
+    """The count of tests the warp-uniform reject leaves (the kernels'
+    bound) against a brute count, on Cornell with coherent and random rays,
+    a dead row, closest and occlusion queries."""
+    scene = _port_scene(SCENES["cornell"]())
+    rows = ic._prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    rng = np.random.default_rng(11)
+    lo, hi = scene.world_min.numpy(), scene.world_max.numpy()
+    o3 = rng.uniform(lo[:, None, None], hi[:, None, None], (3, 3, 128)).astype(np.float32)
+    d3 = rng.normal(size=(3, 3, 128)).astype(np.float32)
+    o3[:, 0] = np.array([278.0, 273.0, -800.0], np.float32)[:, None]   # a camera's row
+    d3[:, 0] = np.stack([np.linspace(-0.3, 0.3, 128), np.full(128, 0.05),
+                         np.ones(128)]).astype(np.float32)
+    live = torch.tensor([1, 1, 0], dtype=torch.int32)
+    o3, d3 = torch.from_numpy(o3), torch.from_numpy(d3)
+    tmax = excl = None
+    if kind != "closest":
+        tmax = torch.from_numpy(rng.uniform(0, 1500, (3, 128)).astype(np.float32))
+        excl = torch.from_numpy(rng.integers(-1, 36, (3, 128)).astype(np.int32))
+    per_warp = kind == "any per warp"
+    got = ic.reject_counts(live, o3, d3, rows, tmax, excl, per_warp=per_warp)
+    assert got == _brute_reject_counts(live, o3, d3, rows, tmax, excl, per_warp)
+    assert got[0] > 0 and got[1] > 0
+    if kind == "closest":
+        assert sum(got) == 2 * 128 * 36
 
 
 def test_row_major_interface_matches_brute_oracle():

@@ -10,7 +10,9 @@ package's ``tools/``, on the CPU, with the same numpy-seeded inputs:
   ``pl.pallas_call(..., interpret=True)`` with the file's own specs.  That
   file runs an un-interpreted ``pallas_call`` at import, so its imports,
   constants and definitions are taken from its source.  The two sum in
-  different orders: rtol 2e-6.
+  different orders: rtol 2e-6;
+- the dense comparison's inputs (``tools/dense_compare.py``): its seeded
+  queries and the wavefronts it records from the integrator.
 """
 
 import ast
@@ -25,7 +27,13 @@ from chiaroscuro_tpu_torch.accel.clusters import build_clusters
 from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
 from chiaroscuro_tpu_torch.scene.builtin import cornell_box
 from chiaroscuro_tpu_torch.scene.scene_arrays import build_scene_tensors
+from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
+from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
+from chiaroscuro_tpu_torch.render.renderer import render_samples
+from chiaroscuro_tpu_torch.scene.config import RenderConfig
+from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
 from chiaroscuro_tpu_torch.tools import cull_experiments as xc
+from chiaroscuro_tpu_torch.tools import dense_compare as dcmp
 from chiaroscuro_tpu_torch.tools import dma_min as dm
 from tools import tpu_cull_experiments as jx
 
@@ -199,3 +207,38 @@ def test_tools_without_a_card_raise():
         dm.main()
     with pytest.raises((AssertionError, RuntimeError)):
         xc.main()
+    with pytest.raises(RuntimeError, match="card"):
+        dcmp.main(["--root", REPO])
+
+
+def test_dense_compare_inputs_on_cpu():
+    """The comparison's seeded queries are the same for the same seed, with
+    about a third of the rows dead; its recorded wavefronts are the
+    integrator's first two closest-hit and occlusion queries of sample 0
+    (primary rays leave the eye), and the dense pair's plain versions take
+    them."""
+    cpu = torch.device("cpu")
+    lo, hi = np.zeros(3, np.float32), np.ones(3, np.float32)
+    a, b = (dcmp.make_queries(np.random.default_rng(3), lo, hi, 36, cpu) for _ in range(2))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert a["o3"].shape == (3, dcmp.B0, 128) and a["excl"].dtype == torch.int32
+    assert 0.6 < float(a["live"].float().mean()) < 0.73
+    assert 0 <= int(a["excl"].min()) and int(a["excl"].max()) < 36
+    cfg = RenderConfig.from_rtc(os.path.join(REPO, "scenes", "cornell.rtc"),
+                                ["xres", "32", "yres", "32", "platform", "cpu"])
+    scene = load_scene(cfg, cpu)
+    waves = dcmp.dense_wavefronts(cfg, scene, make_intersectors, render_samples)
+    assert list(waves) == ["primary", "bounce", "shadow", "bounce shadow"]
+    prim = waves["primary"]
+    assert prim["o3"].shape == (3, 8, 128) and bool(prim["live"].all())
+    eye = torch.tensor(cfg.vp, dtype=torch.float32)[:, None, None]
+    assert torch.equal(prim["o3"], eye.expand_as(prim["o3"]))
+    rows = ic._prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    t = ic.closest_dense(prim["live"], prim["o3"], prim["d3"], rows, ic._prep_attrs(scene))[0]
+    assert float((t < ic.BIG).float().mean()) > 0.9       # the box encloses the camera's view
+    for w in ("shadow", "bounce shadow"):
+        q = waves[w]
+        assert set(q) == {"live", "o3", "d3", "tmax", "excl"}
+        occ = ic.any_dense(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows)
+        assert occ.shape == q["tmax"].shape
