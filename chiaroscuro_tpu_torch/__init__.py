@@ -14,8 +14,12 @@ numpy, never jax or ``chiaroscuro_tpu``:
   ops/       the intersection kernels in CUDA (csrc/): the dense sweep, the
              cluster cull and the cluster visits
   render/    wavefront integrator, renderer, tone map, image I/O
+  utils/     accumulation-state files, phase timing and profiling
 
 The batch render: ``python -m chiaroscuro_tpu_torch scene.rtc no-preview``.
 """
 
 __version__ = "0.1.0"
+
+from chiaroscuro_tpu_torch.scene.config import RenderConfig  # noqa: E402,F401
+from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors  # noqa: E402,F401

@@ -6,7 +6,9 @@ batch render and export the image.  ``platform`` picks the torch device:
 ``cuda`` (the default) or ``cpu``.  Without a CUDA device and without
 ``platform cpu`` the CLI raises rather than quietly rendering on the CPU.
 After the render it prints the kernel launches it made and, on the cluster
-path, the visit route (``resident`` K4/K5 or ``stream`` K6/K7).
+path, the visit route (``resident`` K4/K5 or ``stream`` K6/K7); with
+``profile on`` it then prints the frame's per-phase breakdown
+(``Renderer.profile_phases``), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -53,10 +55,6 @@ def run(argv: Sequence[str]) -> Renderer:
             "the interactive preview is not ported yet (ROADMAP item 13); "
             "pass no-preview"
         )
-    if cfg.profile:
-        raise NotImplementedError(
-            "profile_phases is not ported yet (ROADMAP item 12)"
-        )
 
     # Point-light banner parity (kdtree.cpp:99-104).
     if cfg.light_points:
@@ -79,6 +77,8 @@ def run(argv: Sequence[str]) -> Renderer:
     route = getattr(renderer.intersectors[0], "route", None)
     print(f"Kernel launches: {launched or 'none (plain torch versions)'}"
           + (f"; cluster route: {route}" if route else ""))
+    if cfg.profile:
+        renderer.profile_phases()
     t0 = time.perf_counter()
     renderer.export_image(cfg.render_path)
     renderer.phase_seconds["export"] = time.perf_counter() - t0

@@ -47,6 +47,14 @@ def camera_basis(eye, center, up, yview, xres: int, yres: int):
     return left_upper, dx, dy
 
 
+def primary_ray_dirs(left_upper, dx, dy, px, py, jx, jy):
+    """Row-major :func:`primary_ray_dirs_planar`: broadcastable px/py/jx/jy
+    -> (..., 3) unnormalized directions (``rayTracer.cpp:60-62``)."""
+    cx = (px + jx)[..., None]
+    cy = (py + jy)[..., None]
+    return left_upper + cx * dx + cy * dy
+
+
 def primary_ray_dirs_planar(left_upper, dx, dy, px, py, jx, jy):
     """Unnormalized primary directions (``rayTracer.cpp:60-62``): (3,)
     tensors ``left_upper, dx, dy`` and pixel columns/rows ``px, py`` with AA

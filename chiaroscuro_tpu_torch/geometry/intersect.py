@@ -134,3 +134,16 @@ def intersect_any_bruteforce(
         )
         occluded = occluded | blocking.any(dim=1)
     return occluded
+
+
+def intersect_aabb(origins, dirs, box_min, box_max):
+    """Slab test (``kdtree.cpp:196-208``): (tmin, tmax) per ray of (R, 3)
+    origins and directions against one box; the ray meets the box where
+    ``tmax >= 0 and tmax >= tmin`` (``kdtree.cpp:213``).  A zero direction
+    component divides to an IEEE infinity, as the reference's does."""
+    inv = 1.0 / dirs
+    t0 = (box_min[None, :] - origins) * inv              # (R, 3)
+    t1 = (box_max[None, :] - origins) * inv
+    tmin = torch.minimum(t0, t1).amax(dim=-1)
+    tmax = torch.maximum(t0, t1).amin(dim=-1)
+    return tmin, tmax

@@ -26,18 +26,26 @@ Intersectors are injected (``closest_fn``, ``any_fn``): planar-native ones
 (the dense and cluster kernels, ``.planar_fn``) get the wavefront as is, the
 dense ones with ``live`` row hints; row-major ones (the brute oracle) get
 explicit conversions.  Bounce compaction and the cluster path's spatial ray
-sort (``compact=True``) are pure lane permutations.  Not ported yet: the
-Phong extension (ROADMAP item 11).
+sort (``compact=True``) are pure lane permutations.
+
+The Phong extension (``scene.has_specular``, off by default: the
+reference's two-type system) shades ``BRDF_PHONG`` lanes with Kd/pi + Ks
+(ns+2)/(2pi) cos^ns about the mirror direction, in NEE and point-light
+shading alike, and extends their paths by a one-sample mixture of the
+cosine lobe and the Phong lobe, picked on ``prng.DIM_LOBE`` with
+probability maxKs / (maxKd + maxKs), survival clamped to
+[0.05, 0.95] of maxKd + maxKs, lobes below the surface absorbed.  Lanes of
+other types reduce exactly to the reference branch.
 
 Autograd: radiance is differentiable with respect to the scene's float
-fields (kd, ke, vertex positions, normals, texcoords, texels, light areas)
-through the closest-hit queries' ``autograd.Function``s and plain torch
-ops.  As in the JAX package, hit ids, light picks, Russian roulette and
-occlusion are discrete and carry no gradient, and the world bounds (only
-parking and the sort keys read them) are detached where JAX stops their
-gradient.  Every write into a tensor is out of place or lands in an integer
-or bool tensor (the per-bounce counts, the shadow scatter), and no
-``.item()`` steers the math.
+fields (kd, ke, ks, shininess, vertex positions, normals, texcoords,
+texels, light areas) through the closest-hit queries'
+``autograd.Function``s and plain torch ops.  As in the JAX package, hit
+ids, light picks, Russian roulette and occlusion are discrete and carry no
+gradient, and the world bounds (only parking and the sort keys read them)
+are detached where JAX stops their gradient.  Every write into a tensor is
+out of place or lands in an integer or bool tensor (the per-bounce counts,
+the shadow scatter), and no ``.item()`` steers the math.
 """
 
 from __future__ import annotations
@@ -51,9 +59,16 @@ from chiaroscuro_tpu_torch.geometry import planar as P
 from chiaroscuro_tpu_torch.sampling import prng
 from chiaroscuro_tpu_torch.sampling.samplers import (
     M_1_PI,
+    phong_pdf_planar,
+    reflect_planar,
+    sample_phong_lobe_planar,
     sample_wi_diffuse_planar,
 )
-from chiaroscuro_tpu_torch.scene.scene_arrays import BRDF_EMISSIVE, SceneTensors
+from chiaroscuro_tpu_torch.scene.scene_arrays import (
+    BRDF_EMISSIVE,
+    BRDF_PHONG,
+    SceneTensors,
+)
 
 EPS_OFFSET = float(np.float32(1.0e-3))  # rayTracer.cpp:104,130
 
@@ -104,6 +119,15 @@ def texture_kd_lookup(scene: SceneTensors, tid, u, v):
     """Diffuse albedo at a hit (``rayTracer.cpp:153-157``)."""
     return _atlas_fetch(
         scene, scene.tex_id[tid], _interp_uv(scene, tid, u, v), scene.kd[tid]
+    )
+
+
+def texture_ks_lookup(scene: SceneTensors, tid, u, v):
+    """Specular reflectance at a hit (Phong extension; the reference loads
+    specular maps but uses them only in its raster preview,
+    ``mesh.cpp:54-62``)."""
+    return _atlas_fetch(
+        scene, scene.tex_id_ks[tid], _interp_uv(scene, tid, u, v), scene.ks[tid]
     )
 
 
@@ -238,6 +262,41 @@ def _row_live(mask):
     return mask.any(dim=1, keepdim=True).to(torch.int32)
 
 
+def trace_paths(
+    scene: SceneTensors,
+    origins: torch.Tensor,    # (R, 3) ray origins
+    dirs: torch.Tensor,       # (R, 3) primary directions (may be unnormalized)
+    keys: torch.Tensor,       # (R, 2) per-(pixel,sample) key words (k0, k1)
+    depth: int,
+    background: torch.Tensor,  # (3,)
+    closest_fn,
+    any_fn,
+):
+    """Estimate radiance for R primary rays (row-major wrapper around
+    :func:`trace_paths_planar`; keys as ``prng.pixel_sample_keys`` makes
+    them).  Returns (R, 3)."""
+    R = origins.shape[0]
+    pad = (-R) % 128
+    if pad:
+        # Replicas of ray 0, sliced off at the end.
+        origins = torch.cat([origins, origins[:1].expand(pad, 3)])
+        dirs = torch.cat([dirs, dirs[:1].expand(pad, 3)])
+        keys = torch.cat([keys, keys[:1].expand(pad, 2)])
+    B = ((R + pad) // 128, 128)
+    radiance = trace_paths_planar(
+        scene,
+        P.to_planar(origins, B),
+        P.to_planar(dirs, B),
+        keys[:, 0].reshape(B),
+        keys[:, 1].reshape(B),
+        depth,
+        background,
+        closest_fn,
+        any_fn,
+    )
+    return P.to_rows(radiance)[:R]
+
+
 def trace_paths_planar(
     scene: SceneTensors,
     origins: torch.Tensor,    # (3, B0, 128) planar ray origins
@@ -271,10 +330,6 @@ def trace_paths_planar(
     order at the end.  Every per-lane operation is unchanged, so radiance
     is bitwise that of ``compact=False``.
     """
-    if scene.has_specular:
-        raise NotImplementedError(
-            "the Phong specular extension is not ported yet (ROADMAP item 11)"
-        )
     B = tuple(k0.shape)
     R_flat = B[0] * B[1]
     dev = origins.device
@@ -387,6 +442,13 @@ def trace_paths_planar(
                 kd = _atlas_fetch_planar(scene, A["texid"], uvp, A["kd"])
             else:
                 kd = A["kd"]
+            if scene.has_specular:
+                ks = (
+                    _atlas_fetch_planar(scene, A["texid_ks"], uvp, A["ks"])
+                    if textured
+                    else A["ks"]
+                )
+                ns = A["ns"]
         else:
             res = closest_fn(P.to_rows(origin), P.to_rows(direction))
             tid = res.tid.long()
@@ -402,6 +464,9 @@ def trace_paths_planar(
             kd = P.to_planar(texture_kd_lookup(scene, tid, u_, v_), B)
             ke_hit = P.to_planar(scene.ke[tid], B)
             btype = r2(scene.brdf_type[tid])
+            if scene.has_specular:
+                ks = P.to_planar(texture_ks_lookup(scene, tid, u_, v_), B)
+                ns = r2(scene.shininess[tid])
 
         # Miss -> background, terminate (rayTracer.cpp:134).
         radiance = radiance + P.pwhere(active & ~hit, throughput * bg, 0.0)
@@ -409,6 +474,19 @@ def trace_paths_planar(
         nee_origin = P.pwhere(hit, point + EPS_OFFSET * normal, park_o)
         wo = P.pnormalize(origin - point)
         f_brdf = kd * M_1_PI  # Diffuse::f (brdf.cpp:70)
+
+        if scene.has_specular:
+            # Phong extension state (never active in reference-parity mode).
+            is_phong = btype == BRDF_PHONG
+            n_unit = P.pnormalize(normal)
+            wr = reflect_planar(wo, n_unit)
+            spec_norm = (ns + 2.0) * (0.5 * M_1_PI)
+
+            def phong_f(wi_dir):
+                """Full BRDF f(wi, wo) = Kd/pi + Ks (ns+2)/2pi cos^ns."""
+                cos_r = torch.clamp_min(P.pdot(wr, wi_dir), 0.0)
+                spec = ks * (spec_norm * torch.pow(cos_r, ns))[None]
+                return f_brdf + P.pwhere(is_phong, spec, 0.0)
 
         if k == 1:
             emitted = P.pwhere(btype == BRDF_EMISSIVE, ke_hit, 0.0)
@@ -467,7 +545,8 @@ def trace_paths_planar(
                 P.pdot(normal, wl) * P.pdot(-wl, lnormal) / (1.0 + dist * dist),
                 0.0,
             )
-            nee = lke * (geometric * larea * n_lights)[None] * f_brdf
+            f_nee = phong_f(wl) if scene.has_specular else f_brdf
+            nee = lke * (geometric * larea * n_lights)[None] * f_nee
             direct = direct + P.pwhere(~occluded, nee, 0.0)
 
         # Point-light direct illumination (extension; no RNG consumed).
@@ -484,7 +563,8 @@ def trace_paths_planar(
             pgeo = torch.clamp_min(P.pdot(normal, pwl), 0.0) / (
                 1.0 + pdist * pdist
             )
-            direct = direct + P.pwhere(~pocc, ple * pgeo[None] * f_brdf, 0.0)
+            f_pl = phong_f(pwl) if scene.has_specular else f_brdf
+            direct = direct + P.pwhere(~pocc, ple * pgeo[None] * f_pl, 0.0)
 
         radiance = radiance + P.pwhere(hit, throughput * direct, 0.0)
 
@@ -492,12 +572,49 @@ def trace_paths_planar(
         wi, pdf = sample_wi_diffuse_planar(
             normal, un[prng.DIM_BSDF_U], un[prng.DIM_BSDF_V]
         )
-        kmax = f_brdf.amax(dim=0)
-        survive = (pdf > 0.0) & (un[prng.DIM_RR] <= kmax)
-        cosine = P.pdot(normal, wi).abs()
-        scale = f_brdf * (
-            cosine / torch.where(pdf > 0.0, pdf * kmax, 1.0)
-        )[None]
+        if not scene.has_specular:
+            kmax = f_brdf.amax(dim=0)
+            survive = (pdf > 0.0) & (un[prng.DIM_RR] <= kmax)
+            cosine = P.pdot(normal, wi).abs()
+            scale = f_brdf * (
+                cosine / torch.where(pdf > 0.0, pdf * kmax, 1.0)
+            )[None]
+        else:
+            # Mixture sampling: the cosine lobe or the Phong lobe, the latter
+            # with probability p_spec = maxKs / (maxKd + maxKs); a one-sample
+            # estimator with the mixture pdf.  Non-Phong lanes have
+            # p_spec = 0 and reduce exactly to the branch above.
+            max_kd = kd.amax(dim=0)
+            max_ks = ks.amax(dim=0)
+            p_spec = torch.where(
+                is_phong, max_ks / torch.clamp_min(max_kd + max_ks, 1e-8), 0.0
+            )
+            wi_s, _ = sample_phong_lobe_planar(
+                wr, ns, un[prng.DIM_BSDF_U], un[prng.DIM_BSDF_V]
+            )
+            choose_spec = un[prng.DIM_LOBE] < p_spec
+            wi = P.pwhere(choose_spec, wi_s, wi)
+
+            pdf_d = torch.clamp_min(P.pdot(normal, wi), 0.0) * M_1_PI
+            pdf_s = phong_pdf_planar(wr, wi, ns)
+            pdf_mix = (1.0 - p_spec) * pdf_d + p_spec * pdf_s
+
+            f_at_wi = phong_f(wi)
+            # Survival: the reference's Kmax on diffuse lanes; an
+            # energy-bounded clamp on Phong lanes, whose lobes below the
+            # surface are absorbed.
+            q = torch.where(
+                is_phong,
+                torch.clamp(max_kd + max_ks, 0.05, 0.95),
+                f_brdf.amax(dim=0),
+            )
+            above = P.pdot(n_unit, wi) > 0.0
+            survive = (pdf_mix > 0.0) & (un[prng.DIM_RR] <= q)
+            survive = survive & (above | ~is_phong)
+            cosine = P.pdot(normal, wi).abs()
+            scale = f_at_wi * (
+                cosine / torch.where(pdf_mix > 0.0, pdf_mix * q, 1.0)
+            )[None]
 
         new_active = hit & survive & (k < depth)
         throughput = P.pwhere(new_active, throughput * scale, throughput)

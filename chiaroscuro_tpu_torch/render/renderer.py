@@ -20,12 +20,16 @@ the scene's fields: substitute leaf tensors that require grad with
 ``bench.py``'s losses do with ``dataclasses.replace``.
 ``render_samples(checkpoint=True)`` is the counterpart of ``remat=True``.
 :class:`Renderer` serves frames under ``torch.no_grad()``, so its memory
-does not depend on autograd.  ``save_state``/``load_state``/
-``profile_phases`` (ROADMAP item 12) and ``spp_batch`` are not ported yet.
+does not depend on autograd.  ``Renderer.save_state``/``load_state`` make a
+progressive render resumable (``utils/checkpoint.py``; the file format is
+the JAX package's, so either package resumes the other's), and
+``Renderer.profile_phases`` breaks one frame down by phase
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Tuple
 
@@ -44,6 +48,7 @@ from chiaroscuro_tpu_torch.render.integrator import trace_paths_planar
 from chiaroscuro_tpu_torch.sampling import prng
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
 from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
+from chiaroscuro_tpu_torch.utils.checkpoint import AccumulationState
 
 
 def render_samples(
@@ -66,6 +71,7 @@ def render_samples(
     with_stats: bool = False,
     compact: Optional[bool] = None,
     checkpoint: bool = False,
+    spp_batch: int = 1,
 ):
     """Mean radiance over samples [sample_start, sample_start+n_samples) for
     each pixel of the tile.  Returns (R, 3) float32 (and the (depth, 2)
@@ -73,7 +79,16 @@ def render_samples(
 
     Every sample's randomness is keyed on the global (pixel index, sample
     index), so the result does not depend on tiling or sample chunking.
-    Samples run one wavefront at a time, so memory does not grow with spp.
+    Samples run one wavefront at a time, so memory does not grow with spp,
+    unless ``spp_batch`` > 1:
+
+    ``spp_batch`` folds that many samples into one wavefront (the tile
+    replicated, replica r at sample index s + r), so each bounce makes one
+    query of spp_batch x the rows instead of spp_batch queries: for small
+    scenes the per-launch and per-op costs dominate, and batching amortizes
+    them.  Each (pixel, sample) pair keeps its exact PRNG stream, so only
+    the order of the float sums differs.  Ignored unless it divides
+    ``n_samples``; memory grows with it.
 
     ``compact=None`` takes the intersector's ``prefers_compaction`` (the
     cluster path at K >= 1024): bounce compaction frees work only where
@@ -106,7 +121,15 @@ def render_samples(
     if pad:
         px = torch.cat([px, px[:1].expand(pad)])
         py = torch.cat([py, py[:1].expand(pad)])
-    B = ((R + pad) // 128, 128)
+    Rp = R + pad
+    SB = spp_batch if (spp_batch > 1 and n_samples % spp_batch == 0) else 1
+    B = (Rp * SB // 128, 128)
+    rep = 0
+    if SB > 1:
+        # Replicate the tile SB times; replica r advances the sample index
+        # by r, so one wavefront carries SB consecutive samples per pixel.
+        px, py = px.repeat(SB), py.repeat(SB)
+        rep = torch.arange(SB, device=px.device).repeat_interleave(Rp).reshape(B)
     pixel_idx = (py.long() * xres + px.long()).reshape(B)
     pxf = px.to(torch.float32).reshape(B)
     pyf = py.to(torch.float32).reshape(B)
@@ -114,7 +137,7 @@ def render_samples(
     origins = eye_t[:, None, None].expand((3,) + B).contiguous()
 
     def one_sample(s):
-        k0, k1 = prng.base_key(seed, pixel_idx, s)
+        k0, k1 = prng.base_key(seed, pixel_idx, s + rep)
         jx, jy = prng.aa_jitter_pair(k0, k1)
         dirs = primary_ray_dirs_planar(left_upper, dx, dy, pxf, pyf, jx, jy)
         return trace_paths_planar(
@@ -124,7 +147,7 @@ def render_samples(
 
     total = torch.zeros((3,) + B, dtype=torch.float32, device=dev)
     stats = torch.zeros((depth, 2), dtype=torch.int64, device=dev)
-    for s in range(sample_start, sample_start + n_samples):
+    for s in range(sample_start, sample_start + n_samples, SB):
         if checkpoint:
             radiance, st = torch.utils.checkpoint.checkpoint(
                 one_sample, s, use_reentrant=False
@@ -133,7 +156,10 @@ def render_samples(
             radiance, st = one_sample(s)
         total = total + radiance
         stats = stats + st
-    img = P.to_rows(total)[:R] * (1.0 / n_samples)
+    rows = P.to_rows(total)
+    if SB > 1:
+        rows = rows.reshape(SB, Rp, 3).sum(dim=0)
+    img = rows[:R] * (1.0 / n_samples)
     if with_stats:
         return img, stats
     return img
@@ -294,10 +320,56 @@ class Renderer:
         )
         return self.pixels
 
+    def profile_phases(self, spp: Optional[int] = None) -> dict:
+        """Measured per-phase breakdown of one frame at the config camera
+        (see ``utils/profiling.profile_phases``); prints and returns it."""
+        from chiaroscuro_tpu_torch.utils import profiling
+
+        cfg = self.cfg
+        phases = profiling.profile_phases(
+            self.scene, *self.intersectors,
+            cfg.vp, cfg.la, cfg.up, cfg.yview,
+            cfg.xres, cfg.yres,
+            min(cfg.samples, 16) if spp is None else spp, cfg.k,
+            seed=cfg.seed,
+        )
+        print(profiling.format_phase_report(phases))
+        return phases
+
     def normalize_image(self, exposure: Optional[float] = None) -> np.ndarray:
         """Tone-mapped uint8 image (``rayTracer.cpp:198-223``)."""
         e = self.cfg.exposure if exposure is None else exposure
         return tonemap.normalize_image(self.pixels, e)
+
+    # --- durable progressive accumulation (utils/checkpoint.py) -----------
+    # The reference loses its in-memory layer accumulation on exit
+    # (rayTracer.cpp:18-33); these make long renders resumable.
+
+    def save_state(self, path: str) -> None:
+        cam = self._last_cam or (tuple(self.cfg.vp), tuple(self.cfg.la), self.cfg.yview)
+        state = AccumulationState(
+            pixel_sum=self.pixels.astype(np.float64) * self._layers,
+            layers=self._layers,
+            samples_per_layer=self.cfg.samples,
+            camera=(cam[0], cam[1], tuple(self.cfg.up), cam[2]),
+            seed=self.cfg.seed,
+        )
+        state.save(path)
+
+    def load_state(self, path: str) -> bool:
+        """Restore accumulation if compatible; returns True on resume."""
+        if not os.path.exists(path):
+            return False
+        state = AccumulationState.load(path)
+        if state.pixel_sum.shape != (self.cfg.yres, self.cfg.xres, 3):
+            return False
+        if state.samples_per_layer != self.cfg.samples or state.seed != self.cfg.seed:
+            return False
+        self.pixels = state.pixels
+        self._layers = state.layers
+        self._last_cam = (state.camera[0], state.camera[1], state.camera[3])
+        self.max_val = float(self.pixels.max(initial=0.0))
+        return True
 
     def export_image(self, path: Optional[str] = None) -> None:
         image_io.write_image(

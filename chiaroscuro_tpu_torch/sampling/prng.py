@@ -113,3 +113,40 @@ def bounce_uniforms_planar(k0, k1, bounce):
     b0, b1 = threefry2x32(k0[None], k1[None], bounce, blk)
     bits = torch.stack([b0, b1], dim=1).reshape((2 * n_blocks,) + k0.shape)
     return uniform_from_bits(bits[:N_BOUNCE_DIMS])
+
+
+# ---------------------------------------------------------------------------
+# Row-major wrappers (tests, external callers).  A key is the (k0, k1) word
+# pair stacked on the trailing axis: (..., 2) int64 holding uint32 values.
+# ---------------------------------------------------------------------------
+
+
+def pixel_sample_key(seed, pixel_idx, sample_idx) -> torch.Tensor:
+    """(..., 2) key for (pixel, sample) pairs."""
+    k0, k1 = base_key(seed, pixel_idx, sample_idx)
+    return torch.stack(torch.broadcast_tensors(k0, k1), dim=-1)
+
+
+def pixel_sample_keys(seed, pixel_idx, sample_idx) -> torch.Tensor:
+    """(R, 2) keys for a batch of pixel indices."""
+    return pixel_sample_key(seed, pixel_idx, sample_idx)
+
+
+def aa_jitter(key) -> torch.Tensor:
+    """(..., 2) key -> (..., 2) AA jitter in [0,1)."""
+    jx, jy = aa_jitter_pair(key[..., 0], key[..., 1])
+    return torch.stack([jx, jy], dim=-1)
+
+
+def aa_jitter_batch(keys) -> torch.Tensor:
+    return aa_jitter(keys)
+
+
+def bounce_uniforms(key, bounce) -> torch.Tensor:
+    """(N_BOUNCE_DIMS, ...) uniforms for one path vertex of each key."""
+    return bounce_uniforms_planar(key[..., 0], key[..., 1], bounce)
+
+
+def bounce_uniforms_batch(keys, bounce) -> torch.Tensor:
+    """(R, N_BOUNCE_DIMS) uniforms for a wavefront of R rays at one bounce."""
+    return torch.movedim(bounce_uniforms_planar(keys[..., 0], keys[..., 1], bounce), 0, -1)

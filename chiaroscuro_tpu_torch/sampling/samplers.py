@@ -4,7 +4,10 @@ Branchless (``torch.where``) port of ``chiaroscuro_tpu/sampling/samplers.py``,
 itself the reference's samplers (``src/brdf.cpp:10-62``).  The eight-region
 concentric square->disk map and the tangent-frame construction reproduce the
 reference's math so that renders agree in distribution.  The Phong lobe
-samplers are not ported yet.
+samplers of the specular extension (not in the reference integrator, whose
+``brdf.hpp:8`` has only Diffuse/Emissive) follow in both layouts: the
+planar ``(3, *B)`` forms the integrator runs, and the row-major ``(..., 3)``
+forms the JAX package exports.
 """
 
 from __future__ import annotations
@@ -98,3 +101,81 @@ def sample_wi_diffuse_planar(n, u, v):
     )
     pdf = torch.clamp_min(P.pdot(n, wi), 0.0) * M_1_PI
     return wi, pdf
+
+
+def reflect_planar(wo, n_unit):
+    """Mirror direction of planar ``wo`` about the unit normal:
+    2*dot(n,wo)*n - wo."""
+    return P.pscale(2.0 * P.pdot(n_unit, wo), n_unit) - wo
+
+
+def sample_phong_lobe_planar(wr, ns, u, v):
+    """A direction from the Phong lobe pdf (ns+1)/(2pi) cos^ns(alpha) about
+    the unit planar reflection direction ``wr``: returns (wi, cos_alpha).
+    ``u`` is clamped at 1e-12 before the 1/(ns+1) power, which keeps the
+    power's exponent gradient (log u) finite."""
+    cos_a = torch.pow(torch.clamp_min(u, 1e-12), 1.0 / (ns + 1.0))
+    sin_a = torch.sqrt(torch.clamp_min(1.0 - cos_a * cos_a, 0.0))
+    phi = 2.0 * M_PI * v
+    tangent, bitangent = tangent_frame_planar(wr)
+    wi = P.pnormalize(
+        P.pscale(sin_a * torch.cos(phi), tangent)
+        + P.pscale(sin_a * torch.sin(phi), bitangent)
+        + P.pscale(cos_a, wr)
+    )
+    return wi, cos_a
+
+
+def phong_pdf_planar(wr, wi, ns):
+    """pdf of :func:`sample_phong_lobe_planar` at planar ``wi``."""
+    cos_a = torch.clamp_min(P.pdot(wr, wi), 0.0)
+    return (ns + 1.0) * (0.5 * M_1_PI) * torch.pow(cos_a, ns)
+
+
+# ---------------------------------------------------------------------------
+# Row-major (..., 3) forms: the planar functions on the transposed vectors.
+# ---------------------------------------------------------------------------
+
+
+def _planar(x):
+    return torch.movedim(x, -1, 0)
+
+
+def _rows(x):
+    return torch.movedim(x, 0, -1)
+
+
+def perpendicular(n):
+    """A vector perpendicular to n (``src/brdf.cpp:10-15``). n: (..., 3)."""
+    return _rows(perpendicular_planar(_planar(n)))
+
+
+def tangent_frame(n):
+    """(tangent, bitangent), each (..., 3), as the reference builds them
+    (``src/brdf.cpp:73-74``); n need not be unit."""
+    t, b = tangent_frame_planar(_planar(n))
+    return _rows(t), _rows(b)
+
+
+def sample_wi_diffuse(n, u, v):
+    """Row-major :func:`sample_wi_diffuse_planar`: n (..., 3) -> (wi
+    (..., 3), pdf (...))."""
+    wi, pdf = sample_wi_diffuse_planar(_planar(n), u, v)
+    return _rows(wi), pdf
+
+
+def reflect(wo, n_unit):
+    """Row-major :func:`reflect_planar`."""
+    return _rows(reflect_planar(_planar(wo), _planar(n_unit)))
+
+
+def sample_phong_lobe(wr, ns, u, v):
+    """Row-major :func:`sample_phong_lobe_planar`: (wi (..., 3),
+    cos_alpha (...))."""
+    wi, cos_a = sample_phong_lobe_planar(_planar(wr), ns, u, v)
+    return _rows(wi), cos_a
+
+
+def phong_pdf(wr, wi, ns):
+    """Row-major :func:`phong_pdf_planar`."""
+    return phong_pdf_planar(_planar(wr), _planar(wi), ns)

@@ -77,7 +77,7 @@ class RenderConfig:
     spp_chunk: int = 0               # render samples in chunks of this size (0 = all at once)
     platform: str = "cuda"           # torch device: "cuda" (default) or "cpu"
     enable_specular: bool = False    # Phong specular extension (off = reference parity)
-    profile: bool = False            # per-phase breakdown (not ported: the CLI raises)
+    profile: bool = False            # print the per-phase breakdown after the render
     use_point_lights: bool = True    # shade legacy `L` point lights in the integrator
                                      # (the reference loads none and shades none; its
                                      # shipped legacy renders ARE lit by them — see

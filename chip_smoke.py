@@ -95,6 +95,26 @@ raises, exits non-zero and prints no result line.
    other, reported and profiled as 3c; then the same scene at 160x90,
    2 spp, k 2 on the card and on the CPU, held to the atrium's render
    bounds.
+3f. Phong, spp_batch, state and profile: (a) the builtin Cornell box
+   written as an OBJ/MTL with Ks 0.5 and Ns 50 on its two blocks (checked to
+   load back as the builtin scene), rendered through the CLI with
+   ``specular on profile on`` at cornell.rtc's 768x768, k 6, RENDER_SPP
+   samples: finite, the EXR read back, one K1 and one K2 launch per sample
+   x bounce in the render, the phase report printed, the blocks' top faces
+   brighter than the ``specular off`` render's; warm frames of both; then
+   128x128, 4 spp, k 6 card vs CPU at phase 3's bounds.  (b) The 262k
+   atrium with Ks 0.3 and Ns 40 on every non-emissive mesh through
+   ``Renderer`` and ``intersector auto`` (route ``resident``: 6 K3, 3 K4,
+   3 K5), warm ms beside the same scene's diffuse frame, peak memory and a
+   profiled frame; atrium(2_200) with the same Ks and Ns at 160x90, 2 spp,
+   k 2 through K4/K5 and K6/K7, each against the CPU at phase 3b's bounds.
+   (c) fwd+bwd w.r.t. (kd, ke, ks, shininess) card vs CPU (phase 5's
+   bound): glossy Cornell 64x64 x 4 spp x k 3 (K1), the glossy
+   atrium(2_200) 64x36 x 2 spp x k 2 (K4).  (d) Cornell 512x512 x 16 spp
+   x k 6 with ``spp_batch`` 1 and 16: equal to the CPU tests' batch bound,
+   96 against 6 K1 launches, warm ms by CUDA events, peak memory.  (e)
+   ``save_state``, ``load_state`` into a fresh ``Renderer`` and one more
+   layer: bitwise two layers rendered straight through.
 4. Timings (CUDA events, with the card's name and power limit): every
    kernel vs its plain version in us per launch (K1/K2 on phase 2's
    queries beside their bounds and the kernels they replaced), the visits
@@ -128,8 +148,9 @@ raises, exits non-zero and prints no result line.
    time by torch.profiler over the same loop.
 
 The line before the last is a JSON object of the kernels: for each, the
-launches of its path (K1-K7: the main-path CLI runs, counts set to 0 before
-each run and read after it, summed over the runs; X1/X2: phase 6), its
+launches of its path (K1-K7: the main-path renders of phases 3-3f, counts
+set to 0 before each run and read after it, summed over the runs; X1/X2:
+phase 6), its
 largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
 CUDA events over a loop of calls, their kernel time by torch.profiler
 printed beside it in phase 4; X2 and its library call: kernel time by
@@ -146,6 +167,10 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ast
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import re
@@ -174,6 +199,8 @@ SMALL_LMAX = 32            # lists short enough that most atrium(2_200) rows ove
 PIXEL_ORDER_LMAX = 512     # list width for the pixel-order bounce block
 NANO_RES = (1024, 1024)    # the 19k frame, bench.py's nanosuit shape
 DENSE_ATRIUM_TRIS = 4000   # synthetic:atrium:4000: 4,040 triangles, the dense path
+PHONG_CORNELL = (0.5, 50.0)  # Ks and Ns of the glossy Cornell blocks (phase 3f)
+PHONG_ATRIUM = (0.3, 40.0)   # Ks and Ns of every non-emissive atrium mesh (phase 3f)
 
 # Bounds (H100 SXM peak rates).  With
 # -fmad=false every add and multiply is its own instruction, so the FP32
@@ -1145,12 +1172,82 @@ def device_us(fn, reps, name=None):
     return (us / n if us > 0 and n else None), n
 
 
-def profile_frame(renderer, card):
+def profile_frame(renderer, card, what=None):
     """:func:`profile` over one warm frame of a CLI renderer."""
     cfg = renderer.cfg
     profile(lambda: renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview),
-            f"{cfg.obj_path} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}, one warm "
-            "frame", card)
+            f"{what or cfg.obj_path} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}, one "
+            "warm frame", card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: Phong, spp_batch, state and profile.
+# ---------------------------------------------------------------------------
+
+
+def glossy(meshes, ks, ns, only=None):
+    """The meshes with Ks ``ks`` and Ns ``ns`` on every non-emissive mesh
+    (on those whose name holds ``only``, where given)."""
+    for m in meshes:
+        if not m.is_light and (only is None or only in m.name):
+            m.specular = np.full(3, ks, np.float32)
+            m.shininess = float(ns)
+    return meshes
+
+
+def write_obj(meshes, path):
+    """Write meshes as an OBJ and its MTL (one object and material per mesh,
+    per-corner positions, texcoords and normals), as the OBJ loader reads
+    them back: texcoords flipped to undo its FlipUVs."""
+    base = os.path.splitext(path)[0]
+    obj, mtl = [f"mtllib {os.path.basename(base)}.mtl"], []
+    n = 0
+    for i, m in enumerate(meshes):
+        mtl += [f"newmtl m{i}", "Kd " + " ".join(map(repr, map(float, m.diffuse))),
+                "Ke " + " ".join(map(repr, map(float, m.emissive))),
+                "Ks " + " ".join(map(repr, map(float, m.specular))),
+                f"Ns {float(m.shininess)!r}"]
+        obj += [f"o {m.name.split(':')[0]}", f"usemtl m{i}"]
+        obj += ["v " + " ".join(map(repr, map(float, p))) for p in m.positions]
+        obj += [f"vt {float(u)!r} {float(1.0 - v)!r}" for u, v in m.uvs]
+        obj += ["vn " + " ".join(map(repr, map(float, q))) for q in m.normals]
+        obj += ["f " + " ".join(f"{n + j + 1}/{n + j + 1}/{n + j + 1}" for j in tri)
+                for tri in m.indices]
+        n += len(m.positions)
+    with open(path, "w") as f:
+        f.write("\n".join(obj) + "\n")
+    with open(base + ".mtl", "w") as f:
+        f.write("\n".join(mtl) + "\n")
+
+
+def box_top_pixels(scene, cfg, ic):
+    """(yres, xres) bool: the pixels whose centre ray first hits a block's
+    top face (the glossy blocks' triangles facing +y), by the scene's
+    own closest-hit query."""
+    from chiaroscuro_tpu_torch.geometry.camera import camera_basis, primary_ray_dirs
+    from chiaroscuro_tpu_torch.scene.scene_arrays import BRDF_PHONG
+
+    dev = scene.device
+    lu, dx, dy = (torch.from_numpy(x).to(dev) for x in camera_basis(
+        cfg.vp, cfg.la, cfg.up, cfg.yview, cfg.xres, cfg.yres))
+    ys, xs = torch.meshgrid(torch.arange(cfg.yres, device=dev),
+                            torch.arange(cfg.xres, device=dev), indexing="ij")
+    d = primary_ray_dirs(lu, dx, dy, xs.reshape(-1).float(), ys.reshape(-1).float(), 0.5, 0.5)
+    o = torch.as_tensor(cfg.vp, dtype=torch.float32, device=dev).expand_as(d).contiguous()
+    res = ic.make_dense_intersectors(scene)[0](o, d.contiguous())
+    top = (scene.brdf_type == BRDF_PHONG) & (scene.normal[:, 1] > 0.9)
+    return (res.hit & top[res.tid.long()]).reshape(cfg.yres, cfg.xres).cpu().numpy()
+
+
+def frame_ms(renderer, turns=3):
+    """Median ms of ``turns`` warm frames of a renderer (its own wall clock,
+    which waits for the card)."""
+    cfg = renderer.cfg
+    times = []
+    for _ in range(turns):
+        renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview)
+        times.append(renderer.last_stats["seconds"] * 1e3)
+    return float(np.median(times)), times
 
 
 # ---------------------------------------------------------------------------
@@ -1224,6 +1321,7 @@ def main() -> int:
     from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
     from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
     from chiaroscuro_tpu_torch.scene.config import RenderConfig
+    from chiaroscuro_tpu_torch.scene.obj_loader import load_obj
     from chiaroscuro_tpu_torch.scene.scene_arrays import build_scene_tensors, load_scene
     from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA, atrium
     from chiaroscuro_tpu_torch.tools import cull_experiments as xc
@@ -1657,6 +1755,235 @@ def main() -> int:
                         f"atrium:{DENSE_ATRIUM_TRIS} 160x90 (dense)", flipped_mean_rel=1e-3)
 
     lap("phase 3e")
+    # --- phase 3f: Phong, spp_batch, state and profile -------------------------
+    from chiaroscuro_tpu_torch.render.renderer import Renderer
+    from chiaroscuro_tpu_torch.scene.scene_arrays import BRDF_DIFFUSE, BRDF_PHONG
+
+    # (a) Cornell with glossy blocks as an OBJ through the CLI, specular and
+    # profile on, at cornell.rtc's 768x768 and k 6.
+    with tempfile.TemporaryDirectory() as obj_dir:
+        obj = os.path.join(obj_dir, "cornell_glossy.obj")
+        write_obj(glossy(cornell_box(), PHONG_CORNELL[0], PHONG_CORNELL[1], only="block"), obj)
+        loaded = build_scene_tensors(load_obj(obj), enable_specular=True, device=dev)
+        for k in ("tri_v0", "tri_v1", "tri_v2", "normal", "kd", "ke", "light_areas"):
+            if not torch.equal(getattr(loaded, k), getattr(cornell, k)):
+                raise AssertionError(f"the written Cornell OBJ does not load as the builtin: {k}")
+        if int((loaded.brdf_type == BRDF_PHONG).sum()) != 20:
+            raise AssertionError("the written Cornell OBJ's blocks are not Phong")
+        phong_tokens = ["input", obj, "specular", "on", "samples", str(RENDER_SPP)]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            p_renderer, p_launches, _, p_mem, p_exported = cli_render(
+                cli, repo, counts, phong_tokens + ["profile", "on"], "cornell_phong.exr")
+        print(out.getvalue(), end="")
+        add_launches(p_launches)
+        p_cfg, p_img = p_renderer.cfg, p_renderer.pixels
+        # The render's own launches, which the CLI prints before the profile.
+        rendered = ast.literal_eval(re.search(r"^Kernel launches: (\{.*\})$", out.getvalue(),
+                                              re.M).group(1))
+        want = {"closest": RENDER_SPP * RENDER_K, "any": RENDER_SPP * RENDER_K}
+        if rendered != want:
+            raise AssertionError(f"Phong render launches {rendered} != {want}")
+        if "phase breakdown (full" not in out.getvalue() or not p_cfg.profile:
+            raise AssertionError("profile on printed no phase report")
+        if not (np.isfinite(p_img).all() and np.allclose(p_exported, p_img, rtol=2.0**-10,
+                                                         atol=1e-6)):
+            raise AssertionError("the Phong render is not finite or its EXR does not read back")
+        d_renderer, d_launches, _, _, _ = cli_render(
+            cli, repo, counts, phong_tokens[:2] + ["samples", str(RENDER_SPP)],
+            "cornell_diffuse.exr")
+        add_launches(d_launches)
+        tops = box_top_pixels(p_renderer.scene, p_cfg, ic)
+        top_phong, top_diffuse = float(p_img[tops].mean()), float(d_renderer.pixels[tops].mean())
+        p_warm, d_warm = frame_ms(p_renderer, 2), frame_ms(d_renderer, 2)
+        print(f"[phong] {card}: cornell 768x768 k6 {RENDER_SPP} spp, glossy blocks (Ks "
+              f"{PHONG_CORNELL[0]}, Ns {PHONG_CORNELL[1]}): render launches "
+              f"{rendered}, CLI run's {p_launches}; {int(tops.sum())} box-top "
+              f"pixels, mean {top_phong} (specular off {top_diffuse}); warm frame "
+              f"{p_warm[0]:.1f} ms (turns {', '.join(f'{t:.1f}' for t in p_warm[1])}; "
+              f"specular off {d_warm[0]:.1f} ms, turns "
+              f"{', '.join(f'{t:.1f}' for t in d_warm[1])}); {mem_text(p_mem)}")
+        if not (tops.sum() > 1000 and top_phong > top_diffuse):
+            raise AssertionError("the glossy box tops are not brighter than the diffuse ones")
+        del p_renderer, d_renderer
+        small = {}
+        for platform in ("cuda", "cpu"):
+            c = RenderConfig.from_tokens(small_cfg + ["input", obj, "specular", "on",
+                                                      "platform", platform])
+            s_ = load_scene(c, dev if platform == "cuda" else torch.device("cpu"))
+            reset(*counts)
+            with torch.no_grad():
+                small[platform] = render_image(s_, c).cpu().numpy()
+            if platform == "cuda":
+                add_launches({k: n for c_ in counts for k, n in c_.items()})
+        sync()
+        assert_render_close(small["cuda"], small["cpu"], "cornell Phong 128x128")
+
+    # (b) the 262k atrium with Phong at full width through Renderer, beside
+    # the same scene's diffuse frame.
+    g_meshes = glossy(atrium(MID_TRIS), *PHONG_ATRIUM)
+    g_scene = build_scene_tensors(g_meshes, enable_specular=True, device=dev)
+    g_diffuse = dataclasses.replace(
+        g_scene, has_specular=False,
+        brdf_type=torch.where(g_scene.brdf_type == BRDF_PHONG, BRDF_DIFFUSE, g_scene.brdf_type))
+    a_cfg = RenderConfig.from_tokens(["intersector", "auto", "xres", str(ATRIUM_RES[0]),
+                                      "yres", str(ATRIUM_RES[1]), "samples", "1",
+                                      "k", str(ATRIUM_K), *cam])
+    g_frames = {}
+    for name, sc in (("phong", g_scene), ("diffuse", g_diffuse)):
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        r = Renderer(sc, a_cfg)
+        reset(*counts)
+        r.ray_trace()
+        launches = {k: n for c_ in counts for k, n in c_.items() if n}
+        sync()
+        g_mem = (torch.cuda.max_memory_allocated(), held)
+        if name == "phong":
+            add_launches(launches)
+            if r.intersectors[0].route != "resident" or launches != resident:
+                raise AssertionError(f"262k Phong frame: route {r.intersectors[0].route}, "
+                                     f"launches {launches} != {resident}")
+            img = r.pixels
+            if not np.isfinite(img).all() or img.mean() <= 0:
+                raise AssertionError("the 262k Phong frame is not finite and lit")
+        g_frames[name] = (frame_ms(r), r.last_stats, g_mem, float(r.pixels.mean()))
+        if name == "phong":
+            profile_frame(r, card, f"atrium:{MID_TRIS} Phong")
+        del r
+    (pm, pt), pst, pmem, pmean = g_frames["phong"]
+    (dm_, dt), _, dmem, dmean = g_frames["diffuse"]
+    print(f"[phong] {card}: atrium:{MID_TRIS} 1280x720 k3 1 spp, Ks {PHONG_ATRIUM[0]} Ns "
+          f"{PHONG_ATRIUM[1]} on every non-emissive mesh: warm {pm:.2f} ms/frame (turns "
+          f"{', '.join(f'{t:.2f}' for t in pt)}; {pst['useful_rays_per_sec'] / 1e6:.2f} useful "
+          f"Mray/s), {mem_text(pmem)}, mean {pmean}; the diffuse frame of the same scene "
+          f"{dm_:.2f} ms/frame (turns {', '.join(f'{t:.2f}' for t in dt)}), {mem_text(dmem)}, "
+          f"mean {dmean}; Phong costs {pm - dm_:.2f} ms ({100 * (pm / dm_ - 1):.1f}%)")
+    del g_scene, g_diffuse, g_meshes
+    torch.cuda.empty_cache()
+
+    gs_tokens = ["xres", "160", "yres", "90", "samples", "2", "k", "2", *cam]
+    for stream in (False, True):
+        gs_imgs = {}
+        for d in (dev, torch.device("cpu")):
+            sc = build_scene_tensors(glossy(atrium(2_200, seed=5), *PHONG_ATRIUM),
+                                     enable_specular=True, device=d)
+            c = RenderConfig.from_tokens(gs_tokens)
+            pair = cc.make_cluster_intersectors(sc, stream=stream)
+            reset(*counts)
+            with torch.no_grad():
+                gs_imgs[d.type] = render_image(sc, c, intersectors=pair).cpu().numpy()
+            if d.type == "cuda":
+                used = {k: n for k, n in cc.LAUNCHES.items() if n}
+                route = pair[0].route
+                if route != ("stream" if stream else "resident") or \
+                        set(used) != {"cull", *cc.ROUTES[route]}:
+                    raise AssertionError(f"Phong atrium(2_200) route {route} launched {used}")
+                add_launches(used)
+        sync()
+        assert_render_close(gs_imgs["cuda"], gs_imgs["cpu"],
+                            f"Phong atrium(2_200) 160x90 route {route}", flipped_mean_rel=1e-3)
+
+    # (c) gradients w.r.t. (kd, ke, ks, shininess), card against CPU.
+    phong_fields = ("kd", "ke", "ks", "shininess")
+    for what, make_scene, gcam, res, spp, depth, route in (
+            ("Phong cornell 64x64 x 4 spp x k3 (K1)",
+             lambda d: build_scene_tensors(glossy(cornell_box(), *PHONG_CORNELL, only="block"),
+                                           enable_specular=True, device=d),
+             CORNELL_CAMERA, (64, 64), 4, 3, "dense"),
+            ("Phong atrium(2_200) 64x36 x 2 spp x k2 (K4)",
+             lambda d: build_scene_tensors(glossy(atrium(2_200, seed=5), *PHONG_ATRIUM),
+                                           enable_specular=True, device=d),
+             ATRIUM_CAMERA, (64, 36), 2, 2, "resident")):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            scene = make_scene(d)
+            if route == "dense":
+                def pair_of(s):
+                    return make_intersectors(s, "dense")
+            else:
+                gca = build_clusters(*(x.cpu().numpy() for x in
+                                       (scene.tri_v0, scene.tri_v1, scene.tri_v2)))
+
+                def pair_of(s, gca=gca):
+                    pair = cc.make_cluster_intersectors(s, clusters=gca, stream=False)
+                    if pair[0].route != "resident":
+                        raise AssertionError(f"{what}: route {pair[0].route}")
+                    return pair
+            loss, grads, launches, seconds, _ = grad_run(
+                scene, gcam, res, spp, depth, phong_fields, pair_of, counts=counts)
+            out[d.type] = (loss, grads)
+            if d.type == "cuda":
+                print(f"[grad] {what} on the card: launches {launches}, {seconds:.3f} s")
+                if not launches.get("closest" if route == "dense" else "closest_resident"):
+                    raise AssertionError(f"{what}: no closest-hit launch in fwd+bwd")
+        compare_grads(what, out["cuda"], out["cpu"])
+        if not all(bool(out["cpu"][1][k].abs().sum() > 0) for k in ("ks", "shininess")):
+            raise AssertionError(f"{what}: no ks or shininess gradient")
+
+    # (d) spp_batch at Cornell 512x512 x 16 spp x k6.
+    sb_pair = make_intersectors(cornell, "dense")
+    sys_, sxs = torch.meshgrid(torch.arange(512, device=dev), torch.arange(512, device=dev),
+                               indexing="ij")
+    sb_args = (cornell, CORNELL_CAMERA["eye"], CORNELL_CAMERA["center"], CORNELL_CAMERA["up"],
+               CORNELL_CAMERA["yview"], 512, 512, sxs.reshape(-1), sys_.reshape(-1), 0, 16, 0,
+               RENDER_K, (0.0, 0.0, 0.0), *sb_pair)
+    sb_out = {}
+    for sb in (1, 16):
+        with torch.no_grad():
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset(*counts)
+            img = render_samples(*sb_args, spp_batch=sb)
+            launches = {k: n for c_ in counts for k, n in c_.items() if n}
+            sync()
+            sb_mem = (torch.cuda.max_memory_allocated(), held)
+            add_launches(launches)
+            ms = [time_us(lambda: render_samples(*sb_args, spp_batch=sb), 1) / 1e3
+                  for _ in range(3)]
+        sb_out[sb] = (img, launches, ms, sb_mem)
+        print(f"[spp_batch] {card}: cornell 512x512 x 16 spp x k6, spp_batch={sb}: launches "
+              f"{launches}, warm {float(np.median(ms)):.2f} ms (CUDA events, turns "
+              f"{', '.join(f'{t:.2f}' for t in ms)}), {mem_text(sb_mem)}")
+    ref, img = sb_out[1][0], sb_out[16][0]
+    dif = (img - ref).abs()
+    rel = float((dif / ref.abs().clamp_min(1e-30)).mean())
+    print(f"[spp_batch] 16 against 1: mean relative {rel}, max |d| {float(dif.max())} "
+          f"(max {float(ref.abs().max())})")
+    if not (rel <= 1e-6 and float(dif.max()) <= 1e-5 * float(ref.abs().max())):
+        raise AssertionError("spp_batch=16 differs from spp_batch=1")
+    if sb_out[1][1] != {"closest": 96, "any": 96} or sb_out[16][1] != {"closest": 6, "any": 6}:
+        raise AssertionError(f"spp_batch launches {sb_out[1][1]} / {sb_out[16][1]}")
+    del sb_out, ref, img, dif
+    torch.cuda.empty_cache()
+
+    # (e) state: save, load into a fresh Renderer, one more layer, against
+    # two layers straight through.
+    st_cfg = RenderConfig.from_tokens(small_cfg + ["intersector", "dense"])
+    straight = Renderer(cornell, st_cfg)
+    first = Renderer(cornell, st_cfg)
+    reset(*counts)
+    straight.ray_trace()
+    straight.ray_trace()
+    first.ray_trace()
+    with tempfile.TemporaryDirectory() as state_dir:
+        path = os.path.join(state_dir, "state.npz")
+        first.save_state(path)
+        resumed = Renderer(cornell, st_cfg)
+        if not resumed.load_state(path):
+            raise AssertionError("load_state refused its own state file")
+    resumed.ray_trace()
+    add_launches({k: n for c_ in counts for k, n in c_.items()})
+    if resumed._layers != 2 or not np.array_equal(resumed.pixels.view(np.int32),
+                                                  straight.pixels.view(np.int32)):
+        raise AssertionError("the resumed render is not bitwise two layers straight through")
+    print("[state] save_state / load_state / one more layer: bitwise equal to two layers "
+          "straight through (Cornell 128x128, 4 spp a layer, k 6)")
+    del straight, first, resumed
+
+    lap("phase 3f")
     # --- phase 4: timings ---------------------------------------------------------
     with torch.no_grad():
         t_cornell = time_dense(ic, card, "cornell queries", c_rows, c_attrs,

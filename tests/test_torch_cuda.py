@@ -5,7 +5,9 @@ the same two kernels, under their own launch counts), also on rows built so
 that a row's warps leave their walks far apart, X1 (the row-hit cull) and
 X2 (the double-buffered block fetch); K4/K5 also against K6/K7, the
 per-warp visit counts against the torch replay of the exit rule, and the
-card's gradients against the CPU's.
+card's gradients against the CPU's; the Phong extension's renders through
+K1/K2, K4/K5 and K6/K7 and its gradients against the CPU's, and
+``spp_batch`` against one sample a wavefront.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -579,3 +581,126 @@ def test_card_gradients_match_cpu(cuda_device):
         scale = float(ref.abs().max())
         assert scale > 0, k
         torch.testing.assert_close(grads["cuda"][k], ref, rtol=1e-3, atol=1e-4 * scale)
+
+
+# ---------------------------------------------------------------------------
+# The Phong extension, spp_batch and the Phong gradients on the card.
+# ---------------------------------------------------------------------------
+
+
+def _glossy(meshes, ks, ns, only=None):
+    for m in meshes:
+        if not m.is_light and (only is None or only in m.name):
+            m.specular = np.full(3, ks, np.float32)
+            m.shininess = ns
+    return meshes
+
+
+def _phong_case(path, dev):
+    """(scene, camera, intersector pair) of a Phong scene on ``dev``: the
+    Cornell box with glossy blocks on the dense pair, or atrium(2_200)
+    with every non-emissive mesh glossy on the cluster pair's route."""
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA
+    from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA
+
+    if path == "dense":
+        s = build_scene_tensors(_glossy(cornell_box(), 0.5, 50.0, only="block"),
+                                enable_specular=True, device=dev)
+        return s, CORNELL_CAMERA, make_intersectors(s, "dense")
+    s = build_scene_tensors(_glossy(atrium(2_200, seed=5), 0.3, 40.0),
+                            enable_specular=True, device=dev)
+    return s, ATRIUM_CAMERA, cc.make_cluster_intersectors(s, stream=path == "stream")
+
+
+def _pixels(xres, yres, dev):
+    ys, xs = torch.meshgrid(torch.arange(yres, device=dev), torch.arange(xres, device=dev),
+                            indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense", "resident", "stream"])
+def test_phong_render_card_matches_cpu(path, cuda_device):
+    """A Phong render through K1/K2 (Cornell, glossy blocks), K4/K5 and
+    K6/K7 (atrium(2_200), every mesh glossy) on the card against the same
+    render on the CPU: the pixels inside rtol 1e-3 within 1e-4 x the mean
+    radiance, the whole image within 1e-3 x it (a path that an ulp of a
+    CUDA vs CPU transcendental turned, ROADMAP section 3), at most 0.5% of
+    the pixels outside rtol 1e-3."""
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+
+    imgs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        s, cam, pair = _phong_case(path, dev)
+        before = {**ic.LAUNCHES, **cc.LAUNCHES}
+        with torch.no_grad():
+            imgs[dev.type] = render_samples(
+                s, cam["eye"], cam["center"], cam["up"], cam["yview"], 48, 32,
+                *_pixels(48, 32, dev), 0, 2, 0, 3, (0.0, 0.0, 0.0), *pair).cpu()
+        if dev.type == "cuda":
+            names = ({"dense": ("closest", "any")}.get(path) or cc.ROUTES[path])
+            after = {**ic.LAUNCHES, **cc.LAUNCHES}
+            assert all(after[n] > before[n] for n in names), (path, before, after)
+    img, ref = imgs["cuda"], imgs["cpu"]
+    assert torch.isfinite(img).all() and float(ref.mean()) > 1e-3
+    inside = torch.isclose(img, ref, rtol=1e-3, atol=0.0).all(dim=-1)
+    d = (img - ref).abs()
+    assert float(d[inside].mean()) <= 1e-4 * float(ref.mean())
+    assert float(d.mean()) <= 1e-3 * float(ref.mean())
+    assert float((~inside).float().mean()) <= 0.005
+
+
+@pytest.mark.cuda
+def test_spp_batch_on_card(cuda_device):
+    """spp_batch=16 against 1 on Cornell 64x64 x 16 spp x k 6 through
+    K1/K2: mean relative <= 1e-6 and max |d| <= 1e-5 x max (only the
+    order of the float sums differs), and 6 K1 launches against 96."""
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA as cam
+
+    s = build_scene_tensors(cornell_box(), device=cuda_device)
+    pair = make_intersectors(s, "dense")
+    out = {}
+    for sb in (1, 16):
+        n0 = ic.LAUNCHES["closest"]
+        with torch.no_grad():
+            out[sb] = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], 64,
+                                     64, *_pixels(64, 64, cuda_device), 0, 16, 0, 6,
+                                     (0.0, 0.0, 0.0), *pair, spp_batch=sb)
+        assert ic.LAUNCHES["closest"] - n0 == 96 // sb, sb
+    d = (out[16] - out[1]).abs()
+    assert float((d / out[1].abs().clamp_min(1e-30)).mean()) <= 1e-6
+    assert float(d.max()) <= 1e-5 * float(out[1].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense", "resident"])
+def test_phong_gradients_card_match_cpu(path, cuda_device):
+    """kd/ke/ks/shininess gradients of a Phong render's weighted mean
+    through K1 (Cornell) and K4 (atrium(2_200)) on the card against the
+    CPU's: relative L1 <= 1e-3 each (the smoke's bound), all finite, ks and
+    shininess non-zero."""
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+    from chiaroscuro_tpu_torch.scene.scene_arrays import params_from_numpy
+
+    fields = ("kd", "ke", "ks", "shininess")
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene, cam, _ = _phong_case(path, dev)
+        p = params_from_numpy({k: getattr(scene, k).cpu().numpy() for k in fields}, dev)
+        s = scene.replace(**p)
+        pair = (make_intersectors(s, "dense") if path == "dense"
+                else cc.make_cluster_intersectors(s, stream=False))
+        img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], 24, 16,
+                             *_pixels(24, 16, dev), 0, 2, 0, 2, (0.0, 0.0, 0.0), *pair)
+        w = torch.linspace(0.5, 1.5, img.numel(), device=dev).reshape(img.shape)
+        (img * w).mean().backward()
+        grads[dev.type] = {k: v.grad.cpu().double() for k, v in p.items()}
+    for k, ref in grads["cpu"].items():
+        got = grads["cuda"][k]
+        assert torch.isfinite(got).all(), k
+        scale = float(ref.abs().sum())
+        assert scale > 0 or k == "kd", k
+        assert float((got - ref).abs().sum()) <= 1e-3 * max(scale, 1e-30), k
+    assert float(grads["cpu"]["ks"].abs().sum()) > 0
+    assert float(grads["cpu"]["shininess"].abs().sum()) > 0

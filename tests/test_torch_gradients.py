@@ -178,15 +178,18 @@ def test_grad_wrt_vertex_positions_fd(setup):
         )
 
 
-def _textured_quad():
+def _textured_quad(specular=False):
+    """A textured quad under a light; with ``specular`` the quad is Phong
+    (Ks 0.4, Ns 20)."""
     quad_pos = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
     mesh = Mesh(
         name="q:tex", positions=quad_pos, normals=np.array([[0, 0, 1]] * 4, np.float32),
         uvs=np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32),
         indices=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
         diffuse=np.array([0.5, 0.5, 0.5], np.float32), emissive=np.zeros(3, np.float32),
-        ambient=np.zeros(3, np.float32), specular=np.zeros(3, np.float32),
-        shininess=0.0, texture_diffuse="mem://checker",
+        ambient=np.zeros(3, np.float32),
+        specular=np.full(3, 0.4 if specular else 0.0, np.float32),
+        shininess=20.0 if specular else 0.0, texture_diffuse="mem://checker",
     )
     light = Mesh(
         name="l:light",
@@ -197,7 +200,8 @@ def _textured_quad():
         specular=np.zeros(3, np.float32), shininess=0.0,
     )
     tex = np.linspace(0.1, 0.9, 4 * 4 * 3).reshape(4, 4, 3).astype(np.float32)
-    scene = build_scene_tensors([mesh, light], textures={"mem://checker": tex}, device="cpu")
+    scene = build_scene_tensors([mesh, light], textures={"mem://checker": tex},
+                                enable_specular=specular, device="cpu")
     cfg = RenderConfig(
         xres=8, yres=8, k=1, samples=4, seed=0, intersector="dense",
         vp=(0, 0, 3), la=(0, 0, 0), up=(0, 1, 0), yview=0.8, platform="cpu",
@@ -460,7 +464,8 @@ def test_every_substituted_field_reaches_the_integrator(monkeypatch):
     """``SceneTensors.replace`` hands the integrator the substituted tensors
     themselves, for every data field, and the float fields that shade a
     textured, lit render get gradients from its loss; params_from_numpy
-    makes leaves that require grad where the field is float."""
+    makes leaves that require grad where the field is float.  On the quad
+    made Phong, ks and shininess get finite, non-zero gradients too."""
     scene, cfg = _textured_quad()
     params = params_from_numpy({k: getattr(scene, k).numpy() for k in DATA_FIELDS}, "cpu")
     for k, v in params.items():
@@ -481,6 +486,14 @@ def test_every_substituted_field_reaches_the_integrator(monkeypatch):
     for k in ("tri_v0", "tri_v1", "tri_v2", "normal", "ke", "tex_data", "light_areas"):
         g = params[k].grad
         assert g is not None and torch.isfinite(g).all() and bool(g.abs().sum() > 0), k
+    phong, cfg = _textured_quad(specular=True)
+    assert phong.has_specular
+    p = params_from_numpy({k: getattr(phong, k).numpy() for k in ("ks", "shininess")}, "cpu")
+    render_image(phong.replace(**p), cfg).mean().backward()
+    for k, v in p.items():
+        assert seen[k] is v, k
+        assert v.grad is not None and torch.isfinite(v.grad).all(), k
+        assert bool(v.grad[:2].abs().sum() > 0) and not v.grad[2:].any(), k  # the quad only
     with pytest.raises(ValueError, match="not a data field"):
         scene.replace(n_tris=3)
     with pytest.raises(ValueError, match="shape"):
