@@ -13,22 +13,28 @@ intersected; this module picks the backend:
   package's rule: resident while the packed cluster matrix is within 72 MiB
   (every scene from 4,097 triangles to about 384k at M = 128), streaming
   above; the pair exposes it as ``.route``;
+- ``"bvh"``     — the flattened threaded BVH (``accel/bvh.py``), the
+  structural analog of the reference's kd-tree: the walks B1/B2
+  (``ops/bvh_cuda.py``, one thread a ray) on a GPU, the JAX package's
+  lock-step loop on the CPU.  It has no gradient with respect to the
+  vertices and raises where they require grad; material gradients flow;
 - ``"brute"``   — masked all-pairs Moller-Trumbore (``geometry/intersect.py``),
   the oracle;
-- ``"auto"``    — picks by scene size and device: dense up to 4,096
-  triangles, cluster above on a GPU.  The CPU's large-scene path (the BVH)
-  is not ported yet, so ``auto`` raises there instead of degrading to a
-  slower path.
+- ``"auto"``    — picks by scene size and device, as the JAX package does
+  above 4,096 triangles: dense up to 4,096 triangles; above, cluster on a
+  GPU below 2^24 triangles (the cluster ids' cap), else the BVH, with a
+  ``RuntimeWarning`` on a GPU.
 
 Every pair is differentiable through its closest-hit query when it is made
-from a scene whose fields require grad; a loss rebuilds the pair on each
-parameter-substituted scene, and the cluster path takes a prebuilt
-``clusters`` decomposition so that it does not re-cluster
-(``bench.py:340-357``).
+from a scene whose fields require grad (the BVH's through the materials
+only); a loss rebuilds the pair on each parameter-substituted scene, and the
+cluster path takes a prebuilt ``clusters`` decomposition so that it does not
+re-cluster (``bench.py:340-357``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 from chiaroscuro_tpu_torch.accel.clusters import ClusterArrays
@@ -51,18 +57,17 @@ def resolve_auto(n_tris: int, on_gpu: bool) -> str:
     """The ``"auto"`` backend decision."""
     if n_tris <= AUTO_DENSE_MAX_TRIS:
         return "dense"
+    if on_gpu and n_tris < cluster_cuda.MAX_TRIS:
+        return "cluster"
     if on_gpu:
-        if n_tris < cluster_cuda.MAX_TRIS:
-            return "cluster"
-        raise NotImplementedError(
-            f"scene has {n_tris} triangles >= 2^24: the cluster path keeps "
-            "ids below 2^24, and the BVH that the JAX package falls back to "
-            "is not ported yet (ROADMAP item 10)"
+        warnings.warn(
+            f"scene has {n_tris} triangles >= 2^24: the cluster intersector's "
+            "triangle ids cannot represent it, degrading to the BVH walk "
+            "(B1/B2, one thread a ray). Split the scene or reduce triangle "
+            "count.",
+            RuntimeWarning, stacklevel=3,
         )
-    raise NotImplementedError(
-        f"scene has {n_tris} triangles > {AUTO_DENSE_MAX_TRIS}: the BVH "
-        "path for large scenes on the CPU is not ported yet (ROADMAP item 10)"
-    )
+    return "bvh"
 
 
 def make_intersectors(
@@ -104,8 +109,7 @@ def make_intersectors(
         return cluster_cuda.make_cluster_intersectors(scene, clusters=clusters)
 
     if method == "bvh":
-        raise NotImplementedError(
-            "intersector 'bvh' is not ported yet (ROADMAP item 10); use "
-            "'dense' or 'cluster' (the CUDA kernels), 'brute' or 'auto'"
-        )
+        from chiaroscuro_tpu_torch.accel.bvh import build_bvh, make_bvh_intersectors
+
+        return make_bvh_intersectors(scene, build_bvh(scene))
     raise ValueError(f"unknown intersector method: {method!r}")

@@ -1,8 +1,10 @@
 """CLI entry point: ``python -m chiaroscuro_tpu_torch [scene.rtc] [key value ...]``.
 
 Mirrors ``chiaroscuro_tpu/cli.py`` (the reference's ``main.cpp:5-21`` flow):
-parse the config, load the scene, construct the renderer, run a one-shot
-batch render and export the image.  ``platform`` picks the torch device:
+parse the config, load the scene, construct the renderer, run the
+interactive preview (``preview/viewer.py``; without a display or matplotlib
+it renders one layer) or, with ``no-preview``, a one-shot batch render, and
+always export the image.  ``platform`` picks the torch device:
 ``cuda`` (the default) or ``cpu``.  Without a CUDA device and without
 ``platform cpu`` the CLI raises rather than quietly rendering on the CPU.
 After the render it prints the kernel launches it made and, on the cluster
@@ -19,7 +21,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from chiaroscuro_tpu_torch.ops import cluster_cuda, intersect_cuda
+from chiaroscuro_tpu_torch.ops import bvh_cuda, cluster_cuda, intersect_cuda
 from chiaroscuro_tpu_torch.render.renderer import Renderer
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
 from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
@@ -42,7 +44,7 @@ def resolve_device(platform: str) -> torch.device:
 
 def launch_counts() -> dict:
     """Every kernel's launch count so far, keyed by kernel name."""
-    return {**intersect_cuda.LAUNCHES, **cluster_cuda.LAUNCHES}
+    return {**intersect_cuda.LAUNCHES, **cluster_cuda.LAUNCHES, **bvh_cuda.LAUNCHES}
 
 
 def run(argv: Sequence[str]) -> Renderer:
@@ -50,11 +52,6 @@ def run(argv: Sequence[str]) -> Renderer:
     ``last_stats``)."""
     cfg = RenderConfig.from_argv(list(argv))
     device = resolve_device(cfg.platform)
-    if cfg.use_preview:
-        raise NotImplementedError(
-            "the interactive preview is not ported yet (ROADMAP item 13); "
-            "pass no-preview"
-        )
 
     # Point-light banner parity (kdtree.cpp:99-104).
     if cfg.light_points:
@@ -72,12 +69,17 @@ def run(argv: Sequence[str]) -> Renderer:
     renderer = Renderer(scene, cfg)
     renderer.phase_seconds["scene"] = scene_seconds
     before = launch_counts()
-    renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview)
+    if cfg.use_preview:
+        from chiaroscuro_tpu_torch.preview.viewer import run_preview
+
+        run_preview(renderer)
+    else:
+        renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview)
     launched = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
     route = getattr(renderer.intersectors[0], "route", None)
     print(f"Kernel launches: {launched or 'none (plain torch versions)'}"
           + (f"; cluster route: {route}" if route else ""))
-    if cfg.profile:
+    if cfg.profile and not cfg.use_preview:
         renderer.profile_phases()
     t0 = time.perf_counter()
     renderer.export_image(cfg.render_path)

@@ -8,6 +8,10 @@ has a plain C interface and is loaded with ``ctypes``; :func:`bind` declares
 the argument types the caller gives, and :func:`check_launch` turns a
 launch's error code into an exception.  A failed build raises with nvcc's
 output: there is no fallback.
+
+:func:`build_host_library` does the same for a host source
+``csrc/<stem>.cpp`` with the host compiler (``g++ -O2 -shared -fPIC``): the
+native BVH builder, which needs no card.
 """
 
 from __future__ import annotations
@@ -45,17 +49,15 @@ def nvcc() -> str:
     return found
 
 
-@functools.cache
-def build_library(stem: str) -> tuple:
-    """Build (once per source, headers and flags) and load
-    ``csrc/<stem>.cu``.
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
-    Returns ``(lib, info)`` where ``info`` holds the library path, the build
-    seconds (0.0 when an earlier build was reused) and nvcc's ``-Xptxas -v``
-    report.  Safe to call for different stems from several threads at once
-    (each nvcc runs as its own process)."""
-    source = os.path.join(CSRC_DIR, f"{stem}.cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+
+def _compile(compiler: str, flags: tuple, source: str, stem: str) -> tuple:
+    """Compile ``source`` (hashed with ``flags`` and the shared headers)
+    into ``_build/lib<stem>_<hash>.so`` unless that library exists, and
+    load it.  Returns ``(lib, info)`` as :func:`build_library` does; a
+    failed compile raises with the compiler's output."""
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -67,19 +69,42 @@ def build_library(stem: str) -> tuple:
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            [compiler, *flags, "-o", tmp, source],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {source}:\n"
-                f"{proc.stderr}{proc.stdout}"
+                f"{os.path.basename(compiler)} failed ({proc.returncode}) building "
+                f"{source}:\n{proc.stderr}{proc.stdout}"
             )
         os.replace(tmp, so)
         report = proc.stderr + proc.stdout
     return ctypes.CDLL(so), {"path": so, "seconds": seconds, "ptxas": report}
+
+
+@functools.cache
+def build_library(stem: str) -> tuple:
+    """Build (once per source, headers and flags) and load
+    ``csrc/<stem>.cu``.
+
+    Returns ``(lib, info)`` where ``info`` holds the library path, the build
+    seconds (0.0 when an earlier build was reused) and nvcc's ``-Xptxas -v``
+    report.  Safe to call for different stems from several threads at once
+    (each nvcc runs as its own process)."""
+    return _compile(nvcc(), NVCC_FLAGS, os.path.join(CSRC_DIR, f"{stem}.cu"), stem)
+
+
+@functools.cache
+def build_host_library(stem: str) -> tuple:
+    """Build (once per source and flags) and load the host source
+    ``csrc/<stem>.cpp`` with ``g++`` (``$CXX`` where set).  Returns
+    ``(lib, info)`` as :func:`build_library`; a failed build raises."""
+    compiler = os.environ.get("CXX") or shutil.which("g++")
+    if compiler is None:
+        raise RuntimeError("g++ not found on PATH; the host library cannot be built")
+    return _compile(compiler, HOST_FLAGS, os.path.join(CSRC_DIR, f"{stem}.cpp"), stem)
 
 
 def bind(stem: str, launches: dict) -> tuple:

@@ -55,6 +55,7 @@ import warnings
 import numpy as np
 import torch
 
+from chiaroscuro_tpu_torch.accel.bvh import check_no_vertex_grad
 from chiaroscuro_tpu_torch.geometry import planar as P
 from chiaroscuro_tpu_torch.sampling import prng
 from chiaroscuro_tpu_torch.sampling.samplers import (
@@ -358,6 +359,10 @@ def trace_paths_planar(
     closest_planar = getattr(closest_fn, "planar_fn", None)
     any_planar = getattr(any_fn, "planar_fn", None)
     accepts_live = getattr(closest_fn, "accepts_live", False)
+    if closest_planar is None and getattr(closest_fn, "bvh", None) is not None:
+        # A BVH pair built once may be handed a scene whose vertices
+        # require grad: its hits carry none (accel/bvh.py).
+        check_no_vertex_grad(scene)
     if n_lights > 0:
         light_table = _light_table(scene)
 

@@ -9,8 +9,9 @@ raises, exits non-zero and prints no result line.
 1. Device and build: the card's name and power limit (nvidia-smi), torch's
    device name and count.  The CUDA sources (``csrc/intersect_dense.cu``
    K1/K2, ``csrc/cull_rows.cu`` K3, ``csrc/intersect_cluster.cu`` K4-K7,
-   ``csrc/cull_rowhit.cu`` X1, ``csrc/dma_min.cu`` X2) build in parallel,
-   one nvcc each; build seconds, registers, shared memory and spills are
+   ``csrc/cull_rowhit.cu`` X1, ``csrc/dma_min.cu`` X2, ``csrc/bvh_traverse.cu``
+   B1/B2, and the host's ``csrc/bvh_builder.cpp`` by g++) build in parallel,
+   one compiler each; build seconds, registers, shared memory and spills are
    printed, and K3's and K1/K2's compiled instruction mixes (``cuobjdump
    -sass``).
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
@@ -115,6 +116,22 @@ raises, exits non-zero and prints no result line.
    96 against 6 K1 launches, warm ms by CUDA events, peak memory.  (e)
    ``save_state``, ``load_state`` into a fresh ``Renderer`` and one more
    layer: bitwise two layers rendered straight through.
+3g. The BVH path and the preview: (a) the CLI renders ``synthetic:atrium``
+   (481k) at 1280x720, 1 spp, k 3 with ``intersector bvh`` (3 B1 and 3 B2
+   launches, no other; the BVH built by the native builder,
+   ``csrc/bvh_builder.cpp`` compiled by g++ in phase 1), reported as 3b,
+   warm ms beside phase 3b's cluster frame, held against that frame by 4x4
+   block means at the atrium's card-vs-CPU bound; then B1 on its primary
+   and bounce wavefronts and B2 on its NEE shadow wavefront (the rays of
+   phase 2b) bitwise equal to the plain walk on ROW_SAMPLE seeded rows with
+   equal per-ray step and leaf-test counts, timed on the sample and on
+   every row beside their bounds and K3 + K6/K7 on the same wavefronts.
+   (b) The same on the 262k's wavefronts beside K3 + K4/K5.  (c)
+   atrium(2_200) at 160x90, 2 spp, k 2 through ``intersector bvh`` on the
+   card against the CPU at 3b's bounds.  (d) The preview headless:
+   ``make_state`` on Cornell (K1) and the 262k (K3 + K4) at a small size,
+   the raster frame on the card against the CPU's, then R and the shown
+   layer.
 4. Timings (CUDA events, with the card's name and power limit): every
    kernel vs its plain version in us per launch (K1/K2 on phase 2's
    queries beside their bounds and the kernels they replaced), the visits
@@ -148,17 +165,19 @@ raises, exits non-zero and prints no result line.
    time by torch.profiler over the same loop.
 
 The line before the last is a JSON object of the kernels: for each, the
-launches of its path (K1-K7: the main-path renders of phases 3-3f, counts
+launches of its path (K1-K7, B1/B2: the main-path renders of phases 3-3g, counts
 set to 0 before each run and read after it, summed over the runs; X1/X2:
 phase 6), its
 largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
 CUDA events over a loop of calls, their kernel time by torch.profiler
 printed beside it in phase 4; X2 and its library call: kernel time by
 torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
-ones') and its plain version's on the stated inputs, and the bound: the
+ones', B1/B2 on the 481k primary and shadow wavefronts' sample) and its
+plain version's on the stated inputs, and the bound: the
 larger of the FP32 operations those inputs need (K1/K2: the tests the
 warp-uniform reject leaves; visits counted by the replay of the per-warp
-exit rule; occlusion lanes tested only up to their first blocker) over the
+exit rule; occlusion lanes tested only up to their first blocker; B1/B2:
+BOX_OPS a step and MT_OPS a leaf test of the plain walk's) over the
 card's unfused FP32 rate and the bytes read and written once over its
 memory rate.
 
@@ -250,7 +269,7 @@ REPLACED_US = {
 KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
               "closest_resident": "K4", "any_resident": "K5",
               "closest_cluster": "K6", "any_cluster": "K7", "cull_rowhit": "X1",
-              "dma_min": "X2"}
+              "dma_min": "X2", "bvh_closest": "B1", "bvh_any": "B2"}
 
 
 def card_line() -> str:
@@ -476,7 +495,7 @@ def time_turns(fns, reps):
 
 
 def assert_render_close(img, ref, what, mean_rel=1e-4, outlier_share=0.005,
-                        flipped_mean_rel=None):
+                        flipped_mean_rel=None, vs="card vs cpu"):
     """The CPU tests' bound (tests/test_torch_render.py): mean |d| <=
     mean_rel x mean radiance and at most outlier_share of the pixels outside
     rtol 1e-3.  With ``flipped_mean_rel``, the mean bound holds over the
@@ -489,7 +508,7 @@ def assert_render_close(img, ref, what, mean_rel=1e-4, outlier_share=0.005,
     mean_abs = float(diff.mean())
     mean_in = float(diff[inside].mean())
     outside = float((~inside).mean())
-    print(f"[render] {what} card vs cpu: mean|d|/mean={mean_abs / float(ref.mean())}, "
+    print(f"[render] {what} {vs}: mean|d|/mean={mean_abs / float(ref.mean())}, "
           f"over pixels inside rtol 1e-3 {mean_in / float(ref.mean())}; outside rtol 1e-3: "
           f"{outside} ({int((~inside).sum())} of {inside.size} pixels)")
     if flipped_mean_rel is None:
@@ -1026,12 +1045,13 @@ def mem_text(mem):
             "held before the run began)")
 
 
-def report_frame(card, what, r, total, mem):
+def report_frame(card, what, r, total, mem, setup="clusters + buffers"):
     """The CLI render's phases, cold frame and memory, then the same frame
-    again, warm, from the CLI's renderer."""
+    again, warm, from the CLI's renderer.  ``setup`` names what the
+    intersectors' set-up built."""
     ph, rst = r.phase_seconds, r.last_stats
     print(f"[timing] {card}: {what} k3 1 spp (CLI, cold): scene {ph['scene']:.2f} s, "
-          f"clusters + buffers {ph['intersectors']:.2f} s, render {rst['seconds'] * 1e3:.1f} "
+          f"{setup} {ph['intersectors']:.2f} s, render {rst['seconds'] * 1e3:.1f} "
           f"ms/frame ({rst['useful_rays_per_sec'] / 1e6:.2f} useful Mray/s, occupancy "
           f"{rst['occupancy']:.3f}), export {ph['export']:.2f} s, CLI total {total:.2f} s; "
           f"{mem_text(mem)}")
@@ -1040,13 +1060,18 @@ def report_frame(card, what, r, total, mem):
           f"ms/frame ({r.last_stats['useful_rays_per_sec'] / 1e6:.2f} useful Mray/s)")
 
 
+def route_name(closest_fn):
+    """The pair's route: the cluster route, else ``bvh`` or ``dense``."""
+    return getattr(closest_fn, "route", "bvh" if hasattr(closest_fn, "bvh") else "dense")
+
+
 def check_atrium_render(renderer, exported, launches, want, what, res):
     img, cfg = renderer.pixels, renderer.cfg
     xres, yres = res
     blocks = img.reshape(yres // 4, 4, xres // 4, 4, 3).mean(axis=(1, 3))
     lit = float(np.median(blocks.max(axis=-1)))
     print(f"[render] {what} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}: "
-          f"launches={launches} route={getattr(renderer.intersectors[0], 'route', 'dense')} "
+          f"launches={launches} route={route_name(renderer.intersectors[0])} "
           f"mean={float(img.mean())} "
           f"median max over 4x4 blocks={lit} (per pixel {float(np.median(img.max(axis=-1)))}, "
           f"lit pixels {float((img.max(axis=-1) > 1e-3).mean()):.3f}) "
@@ -1090,6 +1115,10 @@ def profile(fn, label, card):
             layer = "K5/K7 any_visits"
         elif "dense_kernel" in name:
             layer = "K1 closest_dense" if "losest" in name else "K2 any_dense"
+        elif "bvh_closest_kernel" in name:
+            layer = "B1 bvh_closest"
+        elif "bvh_any_kernel" in name:
+            layer = "B2 bvh_any"
         elif "sort" in name.lower() or "radix" in name.lower():
             layer = "sorts"
         elif "index" in name.lower() or "gather" in name.lower() or "scatter" in name.lower():
@@ -1097,7 +1126,7 @@ def profile(fn, label, card):
         else:
             layer = "integrator (elementwise, Threefry, reductions, copies)"
         layers[layer] = layers.get(layer, 0.0) + us
-        if layer.startswith("K"):
+        if layer.startswith(("K", "B")):
             n_prev = per_launch.get(layer, (0.0, 0))[1]
             per_launch[layer] = (layers[layer] / (n_prev + e.count), n_prev + e.count)
     busy = sum(layers.values()) / 1e3
@@ -1178,6 +1207,138 @@ def profile_frame(renderer, card, what=None):
     profile(lambda: renderer.ray_trace(cfg.vp, cfg.la, cfg.up, cfg.yview),
             f"{what or cfg.obj_path} {cfg.xres}x{cfg.yres} k={cfg.k} spp={cfg.samples}, one "
             "warm frame", card)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the BVH walks B1/B2 and the preview.
+# ---------------------------------------------------------------------------
+
+# FP32 operations of one slab test of B1/B2 (csrc/bvh_traverse.cu box_hit):
+# per axis 2 sub, 2 mul, min, max (18); near and far across axes 4; the
+# three compares 3.  Its six NaN checks are not counted.
+BOX_OPS = 25
+
+
+def rows_of(x3):
+    """(3, B0, 128) planar -> (R, 3) contiguous rows."""
+    return x3.reshape(3, -1).T.contiguous()
+
+
+def bvh_bytes(b):
+    """Bytes the BVH holds on the card."""
+    held = [getattr(b, f.name) for f in dataclasses.fields(b)]
+    return sum(t.numel() * t.element_size() for t in held if isinstance(t, torch.Tensor))
+
+
+def bvh_table_bytes(b, seen, hit_ids):
+    """Bytes of the BVH that walks must read, from the plain walk's ``seen``
+    = (node mask, slot mask): each node visited (two float4, 32 bytes), the
+    leaf_start of each leaf tested (4; its first slot is tested first), each
+    triangle slot tested (48), and a tri_order entry (4) for each distinct
+    id in ``hit_ids`` (B1's hits; None for B2, whose blocker reads are not
+    marked and so not counted)."""
+    nodes, slots = seen
+    leaves = nodes & (b.leaf_count > 0) & slots[b.leaf_start.clamp_min(0).long()]
+    ids = 0 if hit_ids is None else torch.unique(hit_ids).numel()
+    return 32 * int(nodes.sum()) + 4 * int(leaves.sum()) + 48 * int(slots.sum()) + 4 * ids
+
+
+def bvh_bound(n_rays, counts, table_bytes, occlusion):
+    """(bound_ms, bound_by) of B1 (B2 with ``occlusion``) on ``n_rays``
+    rays: BOX_OPS operations a step and MT_OPS a leaf triangle test, the
+    walks' (steps, tests) ``counts``, over the unfused FP32 rate; the rays
+    read once (B2: and their tmax and exclude ids), the outputs written once
+    (B1 17 bytes a ray, B2 1) and ``table_bytes`` of the BVH
+    (:func:`bvh_table_bytes`), over the memory rate."""
+    steps, tests = counts
+    ops = BOX_OPS * int(steps.sum()) + MT_OPS * int(tests.sum())
+    ray_bytes = n_rays * ((24 + 8 + 1) if occlusion else (24 + 17))
+    return bound(ops, table_bytes + ray_bytes)
+
+
+def bvh_walks(bc, bvh_mod, b, waves, rng, card, label, beside):
+    """B1 on the primary and bounce wavefronts and B2 on the NEE shadow one
+    of a frame (``atrium_wavefronts``, as rows): bitwise equal to the plain
+    walk on ROW_SAMPLE seeded rows of 128 rays, with equal per-ray step and
+    leaf-test counts; the kernel timed on the sample and on every row, the
+    plain walk on the sample, each beside its bound: the operations of the
+    sample's from the plain walk's counts, of every row's from the kernel's
+    (which equal them on the sample); the BVH bytes of both those that the
+    sample's walks touch (every row's walks touch at least those).  Also
+    the cluster kernels' times on the same wavefront (``beside``:
+    {wavefront: text}).  Returns ({wavefront: {us, plain_us, bound, all_us,
+    all_bound}}, the largest |kernel - plain|)."""
+    out, err = {}, 0.0
+    for wname in ("primary", "bounce", "shadow"):
+        o3, d3, tmax, excl = waves[wname][:4]
+        nB0 = o3.shape[1]
+        pick = torch.from_numpy(rng.choice(nB0, min(ROW_SAMPLE, nB0), replace=False)).to(o3.device)
+        every = (rows_of(o3), rows_of(d3))
+        sample = (rows_of(o3[:, pick]), rows_of(d3[:, pick]))
+        occlusion = tmax is not None
+        if occlusion:
+            every += (tmax.reshape(-1).contiguous(), excl.reshape(-1).contiguous())
+            sample += (tmax[pick].reshape(-1).contiguous(), excl[pick].reshape(-1).contiguous())
+
+        def kern(args, counts=False):
+            fn = bc.any_bvh if occlusion else bc.closest_bvh
+            return fn(b, *args, counts=counts)
+
+        def plain(args, counts=False, seen=None):
+            fn = bvh_mod.bvh_any if occlusion else bvh_mod.bvh_closest
+            return fn(b, *args, counts=counts, seen=seen)
+
+        seen = (torch.zeros(b.n_nodes, dtype=torch.bool, device=b.device),
+                torch.zeros(b.tri_order.shape[0], dtype=torch.bool, device=b.device))
+        got, want = kern(sample, True), plain(sample, True, seen)
+        sync()
+        outs = ("occluded",) if occlusion else ("hit", "t", "tid", "u", "v")
+        bad = [f for f, a, w in zip(outs, got[:-1], want[:-1]) if not torch.equal(bits(a), bits(w))]
+        bad += [f for f, a, w in zip(("steps", "tests"), got[-1], want[-1]) if not torch.equal(a, w)]
+        err = max([err] + [max_err(a.float(), w.float()) for a, w in zip(got[:-1], want[:-1])])
+        kid = "B2" if occlusion else "B1"
+        if bad:
+            raise AssertionError(f"{kid} {label} {wname}: kernel differs from the plain walk in {bad}")
+        t = time_turns({"plain": lambda: plain(sample), "kernel": lambda: kern(sample)},
+                       {"plain": 1, "kernel": 10})
+        t_all = time_turns({"kernel": lambda: kern(every)}, {"kernel": 5})
+        all_counts = kern(every, True)[-1]
+        n_s, n_all = sample[0].shape[0], every[0].shape[0]
+        table_bytes = bvh_table_bytes(b, seen, None if occlusion else want[2][want[0]])
+        bd = bvh_bound(n_s, want[-1], table_bytes, occlusion)
+        bd_all = bvh_bound(n_all, all_counts, table_bytes, occlusion)
+        share = float(want[0].float().mean())
+        print(f"[bvh] {card}: {kid} {label} {wname}: sample of {ROW_SAMPLE} rows ({n_s} rays, "
+              f"{'occluded' if occlusion else 'hit'} share {share:.4f}, steps mean "
+              f"{float(want[-1][0].float().mean()):.1f} max {int(want[-1][0].max())}, leaf tests "
+              f"mean {float(want[-1][1].float().mean()):.1f}): kernel {t['kernel'][0]:.1f} us "
+              f"(turns {t['kernel'][1][0]:.1f}, {t['kernel'][1][1]:.1f}), plain "
+              f"{t['plain'][0]:.1f} us, bound {bd[0] * 1e3:.1f} us ({bd[1]}; "
+              f"{100 * bd[0] * 1e3 / t['kernel'][0]:.1f}% of it); all {nB0} rows ({n_all} rays, "
+              f"steps mean {float(all_counts[0].float().mean()):.1f} max {int(all_counts[0].max())}"
+              f", leaf tests mean {float(all_counts[1].float().mean()):.1f}): kernel "
+              f"{t_all['kernel'][0]:.1f} us (turns {t_all['kernel'][1][0]:.1f}, "
+              f"{t_all['kernel'][1][1]:.1f}), bound {bd_all[0] * 1e3:.1f} us ({bd_all[1]}; "
+              f"{100 * bd_all[0] * 1e3 / t_all['kernel'][0]:.1f}% of it); {beside.get(wname, '')}")
+        out[wname] = dict(us=t["kernel"][0], plain_us=t["plain"][0], bound=bd,
+                          all_us=t_all["kernel"][0], all_bound=bd_all)
+    return out, err
+
+
+def cluster_beside(timings, route):
+    """{wavefront: the cluster route's times on it} from a scene's phase 2b
+    or 2c timings, for :func:`bvh_walks`."""
+    closest, occlusion = {"stream": ("closest_cluster", "any_cluster"),
+                          "resident": ("closest_resident", "any_resident")}[route]
+    out = {}
+    for wname, k in (("primary", closest), ("bounce", closest), ("shadow", occlusion)):
+        v, cull = timings.get((k, wname)), timings.get(("cull", wname))
+        if v is None or cull is None:
+            continue
+        out[wname] = (f"{KERNEL_IDS[k]} on the same wavefront (phase 2b/2c): {v['full_us']:.1f} us "
+                      f"on all rows after K3's {cull['us']:.1f} us cull ({v['us']:.1f} us on its "
+                      f"own {ROW_SAMPLE}-row sample)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1316,7 +1477,9 @@ def main() -> int:
     from chiaroscuro_tpu_torch import cli
     from chiaroscuro_tpu_torch.accel.clusters import build_clusters
     from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
+    from chiaroscuro_tpu_torch.ops import bvh_cuda as bc
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
+    from chiaroscuro_tpu_torch.ops import cuda_build
     from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
     from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
     from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
@@ -1335,7 +1498,7 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    counts = (ic.LAUNCHES, cc.LAUNCHES)
+    counts = (ic.LAUNCHES, cc.LAUNCHES, bc.LAUNCHES)
     main_launches = {k: 0 for c in counts for k in c}   # summed over the CLI runs
 
     def add_launches(launches):
@@ -1354,10 +1517,12 @@ def main() -> int:
     print(f"[device] nvidia-smi: {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     t0 = time.perf_counter()
-    builders = (ic.build, cc.build_cull, cc.build, xc.build, dm.build)
+    builders = (ic.build, cc.build_cull, cc.build, xc.build, dm.build, bc.build,
+                lambda: cuda_build.build_host_library("bvh_builder"))
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = [f.result()[1] for f in [pool.submit(b) for b in builders]]
-    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
+    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, and g++ "
+          "for the native BVH builder, in parallel)")
     for info in infos:
         print(f"[build] {os.path.relpath(info['path'], repo)}: nvcc {info['seconds']:.2f} s")
         for line in info["ptxas"].splitlines():
@@ -1636,8 +1801,10 @@ def main() -> int:
                         "atrium", ATRIUM_RES)
     if a_renderer.intersectors[0].route != "stream":
         raise AssertionError("the 481k atrium did not take the streaming route")
+    a_pixels = a_renderer.pixels.copy()     # the CLI's layer: phase 3g holds the BVH's to it
     report_frame(card, "atrium 481k 1280x720", a_renderer, a_total, a_mem)
     profile_frame(a_renderer, card)
+    a_warm = frame_ms(a_renderer)
     del a_renderer, a_exported
     torch.cuda.empty_cache()
 
@@ -1984,6 +2151,123 @@ def main() -> int:
     del straight, first, resumed
 
     lap("phase 3f")
+    # --- phase 3g: the BVH path (B1/B2) and the preview -------------------------
+    from chiaroscuro_tpu_torch.accel import bvh as bvh_mod
+    from chiaroscuro_tpu_torch.preview.viewer import make_state
+
+    # (a) The 481k frame through the CLI with intersector bvh, against the
+    # cluster frame of phase 3b.
+    b_renderer, b_launches, b_total, b_mem, b_exported = cli_render(
+        cli, repo, counts,
+        ["input", "synthetic:atrium", "intersector", "bvh", "xres", str(ATRIUM_RES[0]),
+         "yres", str(ATRIUM_RES[1]), "samples", "1", "k", str(ATRIUM_K), *cam],
+        "atrium_bvh_1280x720.exr")
+    add_launches(b_launches)
+    check_atrium_render(b_renderer, b_exported, b_launches,
+                        {"bvh_closest": ATRIUM_K, "bvh_any": ATRIUM_K}, "atrium 481k (bvh)",
+                        ATRIUM_RES)
+    b_bvh = b_renderer.intersectors[0].bvh
+
+    def block_means(img):
+        return img.reshape(ATRIUM_RES[1] // 4, 4, ATRIUM_RES[0] // 4, 4, 3).mean(axis=(1, 3))
+
+    # The CLI's layer, before the warm frames below accumulate onto it.
+    assert_render_close(block_means(b_renderer.pixels), block_means(a_pixels),
+                        "atrium 481k 1280x720 4x4 block means", flipped_mean_rel=1e-3,
+                        vs="bvh vs cluster")
+    if b_bvh.builder != "native":
+        raise AssertionError("the 481k BVH was not built by the native builder")
+    print(f"[bvh] {card}: atrium 481k: T={b_renderer.scene.n_tris}, {b_bvh.n_nodes} nodes, "
+          f"leaf size {b_bvh.leaf_size}; native build {b_bvh.build_seconds:.3f} s (g++ of "
+          f"csrc/bvh_builder.cpp {cuda_build.build_host_library('bvh_builder')[1]['seconds']:.2f}"
+          f" s in phase 1); the BVH holds {bvh_bytes(b_bvh) / 2**20:.1f} MiB of device memory")
+    report_frame(card, "atrium 481k 1280x720 (bvh)", b_renderer, b_total, b_mem,
+                 setup="BVH build and upload")
+    b_warm = frame_ms(b_renderer)
+    print(f"[timing] {card}: atrium 481k 1280x720 k3 1 spp warm, median of 3: bvh "
+          f"{b_warm[0]:.1f} ms (turns {', '.join(f'{x:.1f}' for x in b_warm[1])}) against the "
+          f"cluster frame's {a_warm[0]:.1f} ms (phase 3b; turns "
+          f"{', '.join(f'{x:.1f}' for x in a_warm[1])}): {b_warm[0] / a_warm[0]:.2f}x")
+    profile_frame(b_renderer, card, "atrium 481k (bvh)")
+    with torch.no_grad():
+        b_waves, _, _ = atrium_wavefronts(b_renderer.scene, *ATRIUM_RES, dev)
+        big_bvh, bvh_err = bvh_walks(bc, bvh_mod, b_bvh, b_waves, rng, card, "atrium 481k",
+                                     cluster_beside(ctimings, "stream"))
+    del b_renderer, b_exported, b_waves, b_bvh, a_pixels
+    torch.cuda.empty_cache()
+    lap("phase 3g, 481k")
+
+    # (b) The 262k's wavefronts, beside K4/K5.
+    mid = build_scene_tensors(atrium(MID_TRIS), device=dev)
+    m_bvh = bvh_mod.build_bvh(mid)
+    if m_bvh.builder != "native":
+        raise AssertionError(f"the atrium:{MID_TRIS} BVH was not built by the native builder")
+    with torch.no_grad():
+        m_waves, _, _ = atrium_wavefronts(mid, *ATRIUM_RES, dev, clusters=mca)
+        _, m_err = bvh_walks(bc, bvh_mod, m_bvh, m_waves, rng, card, f"atrium:{MID_TRIS}",
+                             cluster_beside(mtimings, "resident"))
+    bvh_err = max(bvh_err, m_err)
+    del m_waves, m_bvh
+    torch.cuda.empty_cache()
+
+    # (c) atrium(2_200) through bvh, card against CPU.
+    s_imgs = {}
+    for platform in ("cuda", "cpu"):
+        c = RenderConfig.from_tokens(s_tokens + ["platform", platform, "intersector", "bvh"])
+        s = load_scene(c, dev if platform == "cuda" else torch.device("cpu"))
+        reset(*counts)
+        with torch.no_grad():
+            s_imgs[platform] = render_image(s, c).cpu().numpy()
+        if platform == "cuda":
+            used = {k: n for c_ in counts for k, n in c_.items() if n}
+            if used != {"bvh_closest": 4, "bvh_any": 4}:
+                raise AssertionError(f"atrium(2_200) 160x90 through bvh launched {used}")
+    sync()
+    assert_render_close(s_imgs["cuda"], s_imgs["cpu"], "atrium(2_200) 160x90 (bvh)",
+                        flipped_mean_rel=1e-3)
+    lap("phase 3g, 262k and atrium(2_200)")
+
+    # (d) The preview, headless: make_state's raster frames on the card
+    # against the CPU's (Cornell through K1, the 262k through K3 + K4), then
+    # R and the tone-mapped layer.
+    p_cases = (
+        ("cornell 64x48", ["input", "builtin:cornell_box", "xres", "64", "yres", "48",
+                           *cam_tokens(CORNELL_CAMERA)],
+         lambda d: build_scene_tensors(cornell_box(), device=d), {"closest": 1}),
+        (f"atrium:{MID_TRIS} 64x36", ["input", f"synthetic:atrium:{MID_TRIS}", "xres", "64",
+                                      "yres", "36", "intersector", "cluster", *cam],
+         lambda d: mid if d.type == "cuda" else build_scene_tensors(atrium(MID_TRIS), device=d),
+         {"cull": 1, "closest_resident": 1}),
+    )
+    for what, tokens, make_scene, want in p_cases:
+        frames = {}
+        for d in (dev, torch.device("cpu")):
+            pv_cfg = RenderConfig.from_tokens(tokens + ["samples", "1", "k", "2",
+                                                          "platform", d.type])
+            pv_r = Renderer(make_scene(d), pv_cfg)
+            pv_st = make_state(pv_r)
+            reset(*counts)
+            frames[d.type] = pv_st.raster_fn(pv_st.camera)
+            if d.type == "cuda":
+                used = {k: n for c_ in counts for k, n in c_.items() if n}
+                if used != want:
+                    raise AssertionError(f"preview raster {what} launched {used}, not {want}")
+                walk = pv_st.display_image()
+                pv_st.press_r()
+                shown = pv_st.display_image()
+                if not (walk.shape == shown.shape == (pv_cfg.yres, pv_cfg.xres, 3)
+                        and shown.dtype == np.uint8 and walk.max() > 0 and shown.max() > 0
+                        and np.isfinite(pv_r.pixels).all()):
+                    raise AssertionError(f"preview {what}: the frames are not the shown images")
+            del pv_r, pv_st
+        f_err = float(np.abs(frames["cuda"] - frames["cpu"]).max())
+        print(f"[preview] {what}: raster frame on the card ({want}) against the CPU's: "
+              f"max |d| {f_err}, lit share {float((frames['cpu'].sum(-1) > 0).mean()):.3f}; "
+              "R rendered a layer and the display showed it")
+        np.testing.assert_allclose(frames["cuda"], frames["cpu"], rtol=1e-4, atol=1e-5)
+    del mid
+    torch.cuda.empty_cache()
+    lap("phase 3g, preview")
     # --- phase 4: timings ---------------------------------------------------------
     with torch.no_grad():
         t_cornell = time_dense(ic, card, "cornell queries", c_rows, c_attrs,
@@ -2168,6 +2452,12 @@ def main() -> int:
                     ctimings[("closest_cluster", "primary")]),
         visit_entry("any_cluster", "chiaroscuro_tpu/ops/cluster_pallas.py:750",
                     ctimings[("any_cluster", "shadow")]),
+        entry("bvh_closest", "cuda", "chiaroscuro_tpu_torch/csrc/bvh_traverse.cu",
+              "chiaroscuro_tpu/accel/bvh.py:361", bvh_err, big_bvh["primary"]["us"] / 1e3,
+              big_bvh["primary"]["plain_us"] / 1e3, big_bvh["primary"]["bound"]),
+        entry("bvh_any", "cuda", "chiaroscuro_tpu_torch/csrc/bvh_traverse.cu",
+              "chiaroscuro_tpu/accel/bvh.py:414", bvh_err, big_bvh["shadow"]["us"] / 1e3,
+              big_bvh["shadow"]["plain_us"] / 1e3, big_bvh["shadow"]["bound"]),
         entry("cull_rowhit", "cuda", "chiaroscuro_tpu_torch/csrc/cull_rowhit.cu",
               "tools/tpu_cull_experiments.py:52", max(x["err"] for x in x1_times.values()),
               x1_t["t"]["x1"][0] / 1e3,

@@ -6,8 +6,9 @@ that a row's warps leave their walks far apart, X1 (the row-hit cull) and
 X2 (the double-buffered block fetch); K4/K5 also against K6/K7, the
 per-warp visit counts against the torch replay of the exit rule, and the
 card's gradients against the CPU's; the Phong extension's renders through
-K1/K2, K4/K5 and K6/K7 and its gradients against the CPU's, and
-``spp_batch`` against one sample a wavefront.
+K1/K2, K4/K5 and K6/K7 and its gradients against the CPU's,
+``spp_batch`` against one sample a wavefront, and B1/B2 (the threaded-BVH
+walks) against their plain walk, with a BVH render against the CPU's.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -704,3 +705,105 @@ def test_phong_gradients_card_match_cpu(path, cuda_device):
         assert float((got - ref).abs().sum()) <= 1e-3 * max(scale, 1e-30), k
     assert float(grads["cpu"]["ks"].abs().sum()) > 0
     assert float(grads["cpu"]["shininess"].abs().sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# B1/B2: the threaded-BVH walks.
+# ---------------------------------------------------------------------------
+
+
+def _bvh_case(name, dev):
+    """A scene's BVH and 1,000 seeded rays around it, then the axis-aligned
+    rays that start on the planes of the BVH's root box (0 * inf = NaN in
+    the slab test: the box must miss), with seeded tmax and exclude ids."""
+    from chiaroscuro_tpu_torch.accel import bvh
+
+    if name == "cornell":
+        scene, leaf = build_scene_tensors(cornell_box(), device=dev), 4
+    else:
+        scene, leaf = build_scene_tensors(atrium(2_200, seed=5), device=dev), 8
+    b = bvh.build_bvh(scene, leaf_size=leaf)
+    rng = np.random.default_rng(21)
+    lo, hi = b.bbox_min[0].cpu().numpy(), b.bbox_max[0].cpu().numpy()   # the root box
+    o = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo), (1000, 3))
+    d = rng.normal(size=(1000, 3))
+    mid = lo + np.array([0.3, 0.45, 0.6]) * (hi - lo)
+    for a in range(3):
+        for x in (lo[a], hi[a]):
+            for e in np.concatenate([np.eye(3), -np.eye(3)]):
+                if e[a] != 0:
+                    continue            # only directions parallel to the plane
+                p = mid.copy()
+                p[a] = x
+                o = np.concatenate([o, p[None]])
+                d = np.concatenate([d, e[None]])
+    n = len(o)
+    tmax = rng.uniform(0.05, 1.0, n) * float(np.linalg.norm(hi - lo))
+    excl = rng.integers(0, scene.n_tris, n)
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    return scene, b, t(o), t(d), t(tmax), t(excl, torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell", "atrium"])
+def test_bvh_kernels_equal_plain_on_card(name, cuda_device):
+    """B1 and B2 bitwise equal to the plain walk (accel/bvh.py) on the
+    card, with equal per-ray step and leaf-test counts; each launch
+    counted, the plain walk launching nothing."""
+    from chiaroscuro_tpu_torch.accel import bvh
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+
+    _, b, o, d, tmax, excl = _bvh_case(name, cuda_device)
+    n0 = dict(bvh_cuda.LAUNCHES)
+    got = bvh_cuda.closest_bvh(b, o, d, counts=True)
+    want = bvh.bvh_closest(b, o, d, counts=True)
+    assert bvh_cuda.LAUNCHES["bvh_closest"] == n0["bvh_closest"] + 1
+    for f, a, w in zip(("hit", "t", "tid", "u", "v"), got[:5], want[:5]):
+        assert torch.equal(_bits(a), _bits(w)), f
+    assert torch.equal(got[5][0], want[5][0]) and torch.equal(got[5][1], want[5][1])
+    hit_share = float(want[0].float().mean())
+    assert 0.2 < hit_share < 0.95
+    occ, counts = bvh_cuda.any_bvh(b, o, d, tmax, excl, counts=True)
+    ref, ref_counts = bvh.bvh_any(b, o, d, tmax, excl, counts=True)
+    assert bvh_cuda.LAUNCHES["bvh_any"] == n0["bvh_any"] + 1
+    assert torch.equal(occ, ref)
+    assert torch.equal(counts[0], ref_counts[0]) and torch.equal(counts[1], ref_counts[1])
+    assert 0.05 < float(ref.float().mean()) < 0.95
+    # The on-plane axis rays: NaN in the root box's slab test, so no step
+    # past the root.
+    on_plane = slice(1000, None)
+    assert int(want[5][0][on_plane].max()) == 1 and not bool(want[0][on_plane].any())
+
+
+@pytest.mark.cuda
+def test_bvh_render_card_matches_cpu(cuda_device):
+    """atrium(2_200) through ``intersector bvh``: B1/B2 launch once per
+    bounce, and the card's image is within the render bound of the CPU's
+    (mean |d| <= 1e-4 x mean over the pixels inside rtol 1e-3, 1e-3 over
+    all, at most 0.5% outside: the smoke's atrium bound)."""
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+    from chiaroscuro_tpu_torch.render.renderer import render_image
+    from chiaroscuro_tpu_torch.scene.config import RenderConfig
+    from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
+
+    tokens = ["input", "synthetic:atrium:2200", "xres", "64", "yres", "36", "samples", "2",
+              "k", "2", "intersector", "bvh", "VP", "1.8", "4.2", "5.0", "LA", "24", "3.2",
+              "6.8", "UP", "0", "1", "0", "yview", "0.9"]
+    imgs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        cfg = RenderConfig.from_tokens(tokens + ["platform", dev.type])
+        n0 = dict(bvh_cuda.LAUNCHES)
+        imgs[dev.type] = render_image(load_scene(cfg, dev), cfg).cpu().numpy()
+        if dev.type == "cuda":
+            assert {k: bvh_cuda.LAUNCHES[k] - n0[k] for k in n0} == \
+                {"bvh_closest": 4, "bvh_any": 4}
+    img, ref = imgs["cuda"], imgs["cpu"]
+    inside = np.isclose(img, ref, rtol=1e-3, atol=0.0).all(axis=-1)
+    mean = float(ref.mean())
+    assert mean > 0 and np.isfinite(img).all()
+    assert float(np.abs(img - ref)[inside].mean()) <= 1e-4 * mean
+    assert float(np.abs(img - ref).mean()) <= 1e-3 * mean
+    assert (~inside).mean() <= 0.005
