@@ -78,12 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <atomic>
-#include <map>
-#include <mutex>
-#include <utility>
-
 #include "mt_core.cuh"
+#include "work_counters.cuh"
 
 namespace {
 
@@ -152,17 +148,6 @@ __device__ __forceinline__ unsigned ask(unsigned* work) {
 
 __device__ __forceinline__ int take(unsigned asked) {
   return (int)__shfl_sync(kFull, asked, 0);
-}
-
-// After its last ask: the launch's last warp to get here resets the counters.
-__device__ __forceinline__ void finish(unsigned* work) {
-  if ((threadIdx.x & 31) == 0) {
-    __threadfence();
-    if (atomicAdd(work + 1, 1u) == gridDim.x * kWarps - 1) {
-      atomicExch(work, 0u);
-      atomicExch(work + 1, 0u);
-    }
-  }
 }
 
 struct ClosestArgs {
@@ -306,7 +291,7 @@ dense_kernel(typename Q::Args a, const int32_t* __restrict__ live,
       q.end(a, plane, i);
       unit = take(next);
     }
-    finish(work);
+    work_counters::finish(work, kWarps);
     return;
   }
 
@@ -334,76 +319,6 @@ dense_kernel(typename Q::Args a, const int32_t* __restrict__ live,
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      n = 0;
-    }
-  }
-  return n;
-}
-
-// The blocks of dense_kernel<Q> that the card holds at once with `bytes` of
-// shared memory, a table of n <= kChunkTris triangles: asked of the runtime
-// once per n (after opting in to a full chunk's shared memory), so that a
-// launch makes no such call again.  0 on error (*err set).
-template <class Q>
-int resident_blocks(int n, size_t bytes, int* err) {
-  static std::atomic<int> known[kChunkTris + 1];
-  *err = 0;
-  int blocks = known[n].load(std::memory_order_relaxed);
-  if (blocks > 0) return blocks;
-  *err = (int)cudaFuncSetAttribute(
-      dense_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kBarBytes + kChunkTris * kTriBytes);
-  if (*err != 0) return 0;
-  int per_sm = 0;
-  *err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, dense_kernel<Q>, kThreads, bytes);
-  if (*err != 0) return 0;
-  const int n_sm = sm_count();
-  if (per_sm < 1 || n_sm < 1) {
-    *err = (int)cudaErrorInvalidConfiguration;
-    return 0;
-  }
-  blocks = per_sm * n_sm;
-  known[n].store(blocks, std::memory_order_relaxed);
-  return blocks;
-}
-
-// The work counters of kernel `which` (0 K1, 1 K2) for launches on `stream`
-// of the current device: {next unit, warps finished}, allocated and zeroed
-// on the stream's first launch and left zero by every launch; nullptr on
-// error (*err set).
-unsigned* stream_counters(void* stream, int which, int* err) {
-  static std::mutex mu;
-  static std::map<std::pair<int, uintptr_t>, unsigned*> by_stream;
-  int dev = 0;
-  *err = (int)cudaGetDevice(&dev);
-  if (*err != 0) return nullptr;
-  const std::pair<int, uintptr_t> key(dev, (uintptr_t)stream);
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = by_stream.find(key);
-  if (it == by_stream.end()) {
-    unsigned* p = nullptr;
-    const size_t bytes = 4 * sizeof(unsigned);
-    *err = (int)cudaMalloc((void**)&p, bytes);
-    if (*err == 0) {
-      *err = (int)cudaMemsetAsync(p, 0, bytes, (cudaStream_t)stream);
-    }
-    if (*err != 0) {
-      if (p != nullptr) cudaFree(p);
-      return nullptr;
-    }
-    it = by_stream.emplace(key, p).first;
-  }
-  return it->second + 2 * which;
-}
-
 // Launch dense_kernel<Q> on as many blocks as the card holds at once, at
 // most one a kWarps units of work.
 template <class Q>
@@ -413,9 +328,10 @@ int launch(const typename Q::Args& a, const void* live, const void* table,
   const int n = min(max(n_tris, 0), kChunkTris);
   const size_t bytes = kBarBytes + (size_t)n * kTriBytes;
   int err = 0;
-  const int blocks = resident_blocks<Q>(n, bytes, &err);
+  const int blocks = work_counters::resident_blocks(
+      dense_kernel<Q>, kThreads, bytes, kBarBytes + kChunkTris * kTriBytes, &err);
   if (err != 0) return err;
-  unsigned* work = stream_counters(stream, which, &err);
+  unsigned* work = work_counters::stream_counters(stream, which, &err);
   if (err != 0) return err;
   const int groups = (n_rows * kUnitsPerRow + kWarps - 1) / kWarps;
   dense_kernel<Q><<<min(blocks, groups), kThreads, bytes,
@@ -428,9 +344,10 @@ int launch(const typename Q::Args& a, const void* live, const void* table,
 }  // namespace
 
 // Plain C entry points, bound with ctypes.  Each launches on `stream`,
-// does not synchronise, and returns the first CUDA error: on a table size's
-// first launch the shared-memory opt-in and the occupancy query, on a
-// stream's first launch the counters' allocation, then cudaGetLastError().
+// does not synchronise, and returns the first CUDA error: on a table
+// size's first launch on a device the shared-memory opt-in and the
+// occupancy query (work_counters.cuh), on a stream's first launch the
+// counters' allocation, then cudaGetLastError().
 // `table` is the padded (T, 12) copy, 16-byte aligned.
 extern "C" {
 

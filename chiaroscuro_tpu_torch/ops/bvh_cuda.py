@@ -7,8 +7,9 @@
   original id is not the ray's exclude id hits at t < tmax.
 
 The kernels live in ``csrc/bvh_traverse.cu`` (its header says what bounds
-them and how the design answers it): one thread walks one ray over the
-threaded layout.  Their plain versions are the lock-step loops
+them and how the design answers it): persistent warps whose lanes take new
+rays from a per-stream device counter as their walks end, and run the
+leaves they hold together.  Their plain versions are the lock-step loops
 :func:`~chiaroscuro_tpu_torch.accel.bvh.bvh_closest` /
 :func:`~chiaroscuro_tpu_torch.accel.bvh.bvh_any`.  Each wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
@@ -71,10 +72,17 @@ def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
+def _tables(bvh):
+    """The BVH's four tables, as launch arguments."""
+    return (bvh.nodes.data_ptr(), bvh.leaf_start.data_ptr(), bvh.tris.data_ptr(),
+            bvh.tri_order.data_ptr())
+
+
 def closest_bvh(bvh: BVHArrays, origins, dirs, counts: bool = False):
     """B1: (hit, t, tid, u, v) of (R, 3) f32 ray rows, t = inf on a miss;
     with ``counts`` also each ray's (steps, leaf triangle tests).  The
-    kernel for CUDA tensors, the plain walk for CPU tensors."""
+    kernel for CUDA tensors (no launch for R = 0), the plain walk for CPU
+    tensors."""
     origins, dirs = origins.detach().contiguous(), dirs.detach().contiguous()
     if origins.device.type == "cpu":
         return bvh_closest(bvh, origins, dirs, counts=counts)
@@ -87,16 +95,16 @@ def closest_bvh(bvh: BVHArrays, origins, dirs, counts: bool = False):
     tid = torch.empty((R,), dtype=torch.int32, device=dev)
     u = torch.empty((R,), dtype=torch.float32, device=dev)
     v = torch.empty((R,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bvh_closest_launch(
-            bvh.nodes.data_ptr(), bvh.leaf_start.data_ptr(), bvh.tris.data_ptr(),
-            bvh.tri_order.data_ptr(), origins.data_ptr(), dirs.data_ptr(), R,
-            step_limit(bvh), hit.data_ptr(), t.data_ptr(), tid.data_ptr(),
-            u.data_ptr(), v.data_ptr(), _ptr(steps), _ptr(tests), stream,
-        )
-    check_launch(lib, err, "bvh_closest")
-    LAUNCHES["bvh_closest"] += 1
+    if R > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.bvh_closest_launch(
+                *_tables(bvh), origins.data_ptr(), dirs.data_ptr(), R, step_limit(bvh),
+                hit.data_ptr(), t.data_ptr(), tid.data_ptr(), u.data_ptr(), v.data_ptr(),
+                _ptr(steps), _ptr(tests), stream,
+            )
+        check_launch(lib, err, "bvh_closest")
+        LAUNCHES["bvh_closest"] += 1
     out = (hit, t, tid, u, v)
     return out + ((steps, tests),) if counts else out
 
@@ -105,7 +113,7 @@ def any_bvh(bvh: BVHArrays, origins, dirs, tmax, exclude_id, counts: bool = Fals
     """B2: (R,) bool occlusion of (R, 3) f32 ray rows by a triangle whose
     original id is not ``exclude_id`` (R,) int, at t < ``tmax`` (R,) f32;
     with ``counts`` ``(occluded, (steps, tests))``.  The kernel for CUDA
-    tensors, the plain walk for CPU tensors."""
+    tensors (no launch for R = 0), the plain walk for CPU tensors."""
     origins, dirs = origins.detach().contiguous(), dirs.detach().contiguous()
     tmax = tmax.detach()
     if origins.device.type == "cpu":
@@ -119,14 +127,14 @@ def any_bvh(bvh: BVHArrays, origins, dirs, tmax, exclude_id, counts: bool = Fals
     _check("tmax", tmax, (R,), torch.float32, dev)
     _check("exclude_id", excl, (R,), torch.int32, dev)
     occ = torch.empty((R,), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bvh_any_launch(
-            bvh.nodes.data_ptr(), bvh.leaf_start.data_ptr(), bvh.tris.data_ptr(),
-            bvh.tri_order.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-            tmax.data_ptr(), excl.data_ptr(), R, step_limit(bvh),
-            occ.data_ptr(), _ptr(steps), _ptr(tests), stream,
-        )
-    check_launch(lib, err, "bvh_any")
-    LAUNCHES["bvh_any"] += 1
+    if R > 0:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.bvh_any_launch(
+                *_tables(bvh), origins.data_ptr(), dirs.data_ptr(), tmax.data_ptr(),
+                excl.data_ptr(), R, step_limit(bvh), occ.data_ptr(), _ptr(steps),
+                _ptr(tests), stream,
+            )
+        check_launch(lib, err, "bvh_any")
+        LAUNCHES["bvh_any"] += 1
     return (occ, (steps, tests)) if counts else occ

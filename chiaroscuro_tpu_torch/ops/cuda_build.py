@@ -11,7 +11,11 @@ output: there is no fallback.
 
 :func:`build_host_library` does the same for a host source
 ``csrc/<stem>.cpp`` with the host compiler (``g++ -O2 -shared -fPIC``): the
-native BVH builder, which needs no card.
+native BVH builder and the OpenEXR shim, which need no card and have
+pure-Python stand-ins.  A failed host build is recorded beside the library
+(``lib<stem>_<hash>.failed``, holding the compiler's output), so later
+processes raise at once instead of compiling again; delete the file to
+retry.
 """
 
 from __future__ import annotations
@@ -52,16 +56,26 @@ def nvcc() -> str:
 HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
-def _compile(compiler: str, flags: tuple, source: str, stem: str) -> tuple:
-    """Compile ``source`` (hashed with ``flags`` and the shared headers)
-    into ``_build/lib<stem>_<hash>.so`` unless that library exists, and
-    load it.  Returns ``(lib, info)`` as :func:`build_library` does; a
-    failed compile raises with the compiler's output."""
-    digest = hashlib.sha256(" ".join(flags).encode())
+def _compile(compiler: str, flags: tuple, source: str, stem: str, libs: tuple = (),
+             remember_failure: bool = False) -> tuple:
+    """Compile ``source`` (hashed with the compiler, ``flags``, ``libs`` and
+    the shared headers) into ``_build/lib<stem>_<hash>.so`` unless that
+    library exists, and load it; ``libs`` follow the source on the command
+    line.  Returns ``(lib, info)`` as :func:`build_library` does; a failed
+    compile raises with the compiler's output.  With ``remember_failure``
+    that output is also kept in ``_build/lib<stem>_<hash>.failed``, and
+    while that file exists the compile is not tried again: the call raises
+    with the output kept."""
+    digest = hashlib.sha256(" ".join((compiler,) + flags + libs).encode())
     for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(f.read())
     so = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+    failed = so[:-len(".so")] + ".failed"
+    if remember_failure and not os.path.exists(so) and os.path.exists(failed):
+        with open(failed) as f:
+            first, _, rest = f.read().partition("\n")
+        raise RuntimeError(f"{first} (an earlier build; delete {failed} to retry)\n{rest}")
     seconds, report = 0.0, ""
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
@@ -69,16 +83,20 @@ def _compile(compiler: str, flags: tuple, source: str, stem: str) -> tuple:
         os.close(fd)
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [compiler, *flags, "-o", tmp, source],
+            [compiler, *flags, "-o", tmp, source, *libs],
             capture_output=True, text=True,
         )
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(
-                f"{os.path.basename(compiler)} failed ({proc.returncode}) building "
-                f"{source}:\n{proc.stderr}{proc.stdout}"
-            )
+            msg = (f"{os.path.basename(compiler)} failed ({proc.returncode}) building "
+                   f"{source}:\n{proc.stderr}{proc.stdout}")
+            if remember_failure:
+                fd, note = tempfile.mkstemp(suffix=".failed", dir=BUILD_DIR)
+                with os.fdopen(fd, "w") as f:
+                    f.write(msg)
+                os.replace(note, failed)
+            raise RuntimeError(msg)
         os.replace(tmp, so)
         report = proc.stderr + proc.stdout
     return ctypes.CDLL(so), {"path": so, "seconds": seconds, "ptxas": report}
@@ -97,14 +115,19 @@ def build_library(stem: str) -> tuple:
 
 
 @functools.cache
-def build_host_library(stem: str) -> tuple:
+def build_host_library(stem: str, flags: tuple = (), libs: tuple = ()) -> tuple:
     """Build (once per source and flags) and load the host source
-    ``csrc/<stem>.cpp`` with ``g++`` (``$CXX`` where set).  Returns
-    ``(lib, info)`` as :func:`build_library`; a failed build raises."""
+    ``csrc/<stem>.cpp`` with ``g++`` (``$CXX`` where set), with ``flags``
+    (include paths) after HOST_FLAGS and ``libs`` (``-l`` options) after
+    the source.  Returns ``(lib, info)`` as :func:`build_library`; a failed
+    build raises, and is recorded so that later calls raise without
+    compiling (module docstring)."""
     compiler = os.environ.get("CXX") or shutil.which("g++")
     if compiler is None:
         raise RuntimeError("g++ not found on PATH; the host library cannot be built")
-    return _compile(compiler, HOST_FLAGS, os.path.join(CSRC_DIR, f"{stem}.cpp"), stem)
+    return _compile(compiler, HOST_FLAGS + tuple(flags),
+                    os.path.join(CSRC_DIR, f"{stem}.cpp"), stem, tuple(libs),
+                    remember_failure=True)
 
 
 def bind(stem: str, launches: dict) -> tuple:

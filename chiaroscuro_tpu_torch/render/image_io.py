@@ -4,14 +4,13 @@ Plays the role of the reference's FreeImage export path
 (``src/rayTracer.cpp:225-279``): ``.exr``/``.hdr`` extensions get raw float
 RGB radiance; anything else is tone mapped (exrdisplay knee/gamma) to 8-bit.
 
-EXR goes through the native OpenEXR shim that the JAX package ships
-(``chiaroscuro_tpu/native/libexr_io.so``) —
+EXR goes through the native OpenEXR shim ``csrc/exr_io.cpp`` (built with
+``g++`` at first use into ``chiaroscuro_tpu_torch/_build/`` by
+``ops/cuda_build.build_host_library`` and loaded with ``ctypes``) —
 HALF-RGB scanlines, PIZ-compressed, matching the reference goldens' encoding —
 with a pure-Python fallback writer/reader (uncompressed or ZIP scanline
-format) when the native library is unavailable.  ``.hdr`` is Radiance RGBE.
-
-The shim is loaded by file path with ``ctypes``, which imports no Python
-module of the JAX package; it is never built from here.
+format), and a printed warning, where the shim does not build or load (a
+host without OpenEXR 3.1).  ``.hdr`` is Radiance RGBE.
 """
 
 from __future__ import annotations
@@ -32,19 +31,22 @@ EXR_NONE = 0
 EXR_ZIP = 3
 EXR_PIZ = 4
 
-_EXR_LIB = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "chiaroscuro_tpu", "native", "libexr_io.so",
-)
+# The shim's compile and link flags (OpenEXR 3.1 and Imath).
+EXR_FLAGS = ("-I/usr/include/OpenEXR", "-I/usr/include/Imath")
+EXR_LIBS = ("-lOpenEXR-3_1", "-lIex-3_1", "-lIlmThread-3_1", "-lImath-3_1")
 
 
 @functools.cache
 def _native() -> Optional[ctypes.CDLL]:
-    """The OpenEXR shim, or None where it does not load."""
+    """The OpenEXR shim, built at first use; None, with a printed warning,
+    where it does not build or load."""
+    from chiaroscuro_tpu_torch.ops.cuda_build import build_host_library
+
     try:
-        l = ctypes.CDLL(_EXR_LIB)
-    except OSError as e:
-        print(f"WARNING: cannot load {_EXR_LIB}: {e}")
+        l, _ = build_host_library("exr_io", EXR_FLAGS, EXR_LIBS)
+    except (RuntimeError, OSError) as e:
+        first = str(e).splitlines()[0] if str(e) else type(e).__name__
+        print(f"WARNING: native EXR shim unavailable ({first}); EXR I/O degraded")
         return None
     l.exr_get_size.restype = ctypes.c_int
     l.exr_get_size.argtypes = [
@@ -245,6 +247,44 @@ def write_hdr(path: str, pixels: np.ndarray) -> None:
         f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
         f.write(f"-Y {h} +X {w}\n".encode())
         f.write(rgbe.tobytes())
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """Read a Radiance .hdr (RLE or flat) to (H, W, 3) float32."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos = data.index(b"\n\n") + 2 if b"\n\n" in data else 0
+    e = data.index(b"\n", pos)
+    dims = data[pos:e].split()
+    h, w = int(dims[1]), int(dims[3])
+    pos = e + 1
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    for y in range(h):
+        if data[pos] == 2 and data[pos + 1] == 2:  # new-style RLE scanline
+            pos += 4
+            for c in range(4):
+                x = 0
+                while x < w:
+                    n = data[pos]
+                    pos += 1
+                    if n > 128:
+                        rgbe[y, x:x + n - 128, c] = data[pos]
+                        pos += 1
+                        x += n - 128
+                    else:
+                        rgbe[y, x:x + n, c] = np.frombuffer(
+                            data[pos:pos + n], np.uint8
+                        )
+                        pos += n
+                        x += n
+        else:
+            row = np.frombuffer(data[pos:pos + 4 * w], np.uint8).reshape(w, 4)
+            rgbe[y] = row
+            pos += 4 * w
+    exp = np.exp2(rgbe[..., 3].astype(np.float32) - 136.0)
+    # +0.5: mid-bin reconstruction (standard Radiance convention).
+    vals = (rgbe[..., :3].astype(np.float32) + 0.5) * exp[..., None]
+    return np.where(rgbe[..., 3:4] == 0, 0.0, vals)
 
 
 # --------------------------------------------------------------------------

@@ -73,7 +73,8 @@ class RenderConfig:
 
     # --- framework extensions (not in the reference) -----------------------
     seed: int = 0                    # base PRNG seed (counter-based streams)
-    intersector: str = "auto"        # "auto" | "dense" (or "pallas") | "cluster" | "brute"
+    intersector: str = "auto"        # "auto" | "dense" (or "pallas") | "cluster"
+                                     # | "bvh" | "brute"
     spp_chunk: int = 0               # render samples in chunks of this size (0 = all at once)
     platform: str = "cuda"           # torch device: "cuda" (default) or "cpu"
     enable_specular: bool = False    # Phong specular extension (off = reference parity)

@@ -98,6 +98,10 @@ class SceneTensors:
     def device(self) -> torch.device:
         return self.tri_v0.device
 
+    @property
+    def has_lights(self) -> bool:
+        return self.n_lights > 0
+
     def replace(self, **fields: torch.Tensor) -> "SceneTensors":
         """This scene with the given data fields substituted, e.g. leaf
         tensors that require grad: ``scene.replace(kd=kd, ke=ke)``.  Each

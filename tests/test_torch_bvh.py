@@ -308,6 +308,17 @@ def test_step_counts_and_cpu_wrappers(built):
     assert int(capped[5][0].max()) <= 2
 
 
+def test_empty_wavefronts_walk_without_a_launch(built):
+    """An empty wavefront walks to empty outputs without a launch."""
+    _, _, _, _, pb = built
+    before = dict(bvh_cuda.LAUNCHES)
+    none = torch.zeros((0, 3))
+    hit, t, tid, u, v, (steps, tests) = bvh_cuda.closest_bvh(pb, none, none, counts=True)
+    occ = bvh_cuda.any_bvh(pb, none, none, torch.zeros(0), torch.zeros(0, dtype=torch.int32))
+    assert hit.shape == t.shape == steps.shape == occ.shape == (0,)
+    assert bvh_cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("query", ["closest", "any"])
 def test_seen_marks_walked_nodes_and_slots(built, query):
     """``seen`` marks what the walks touch, the bytes the kernels' bound

@@ -747,35 +747,121 @@ def _bvh_case(name, dev):
     return scene, b, t(o), t(d), t(tmax), t(excl, torch.int32)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cornell", "atrium"])
-def test_bvh_kernels_equal_plain_on_card(name, cuda_device):
-    """B1 and B2 bitwise equal to the plain walk (accel/bvh.py) on the
-    card, with equal per-ray step and leaf-test counts; each launch
-    counted, the plain walk launching nothing."""
+def _bvh_rays(case, dev):
+    """(BVH, origins, dirs, tmax, exclude ids) of a B1/B2 case: the scenes'
+    rays of :func:`_bvh_case` ("cornell", "atrium"), the atrium's in a
+    seeded random order, its first R rays (R of 0, 1, 33 and 4,097, from
+    4,097 seeded rays about its root box), and "long": two warps of rays in
+    which one lane walks the atrium's longest seeded walk and the other 31
+    miss the root box."""
     from chiaroscuro_tpu_torch.accel import bvh
-    from chiaroscuro_tpu_torch.ops import bvh_cuda
 
-    _, b, o, d, tmax, excl = _bvh_case(name, cuda_device)
+    name = "cornell" if case == "cornell" else "atrium"
+    _, b, o, d, tmax, excl = _bvh_case(name, dev)
+    if case in ("cornell", "atrium"):
+        return b, o, d, tmax, excl
+    rng = np.random.default_rng(33)
+    if case == "random order":
+        perm = torch.from_numpy(rng.permutation(o.shape[0])).to(dev)
+        return b, o[perm], d[perm], tmax[perm], excl[perm]
+    lo, hi = b.bbox_min[0].cpu().numpy(), b.bbox_max[0].cpu().numpy()
+    n = 4097
+    oo = torch.tensor(rng.uniform(lo, hi, (n, 3)), dtype=torch.float32, device=dev)
+    dd = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+    tm = torch.tensor(rng.uniform(0.05, 1.0, n) * float(np.linalg.norm(hi - lo)),
+                      dtype=torch.float32, device=dev)
+    ex = torch.tensor(rng.integers(0, 2_200, n), dtype=torch.int32, device=dev)
+    if case.startswith("R="):
+        r = int(case[2:])
+        return b, oo[:r], dd[:r], tm[:r], ex[:r]
+    # "long": the longest of the seeded walks at lanes 5 and 32 + 17.
+    steps = bvh.bvh_closest(b, oo, dd, counts=True)[5][0]
+    k = int(torch.argmax(steps))
+    away = torch.tensor(hi + (hi - lo), dtype=torch.float32, device=dev)
+    o2 = away.expand(64, 3).clone()
+    d2 = torch.ones((64, 3), dtype=torch.float32, device=dev)
+    t2 = tm[:64].clone()
+    e2 = ex[:64].clone()
+    for lane in (5, 49):
+        o2[lane], d2[lane], t2[lane], e2[lane] = oo[k], dd[k], float("inf"), -1
+    return b, o2, d2, t2, e2
+
+
+BVH_CASES = ["cornell", "atrium", "random order", "R=0", "R=1", "R=33", "R=4097", "long"]
+
+
+def _bvh_equal(bvh_cuda, bvh, b, o, d, tmax, excl):
+    """B1 and B2 on the card against the plain walk: bitwise, with equal
+    counts, one launch each (none for no rays).  Returns the plain walk's
+    ((hit, t, tid, u, v, counts), (occluded, counts))."""
     n0 = dict(bvh_cuda.LAUNCHES)
+    launches = int(o.shape[0] > 0)
     got = bvh_cuda.closest_bvh(b, o, d, counts=True)
     want = bvh.bvh_closest(b, o, d, counts=True)
-    assert bvh_cuda.LAUNCHES["bvh_closest"] == n0["bvh_closest"] + 1
+    assert bvh_cuda.LAUNCHES["bvh_closest"] == n0["bvh_closest"] + launches
     for f, a, w in zip(("hit", "t", "tid", "u", "v"), got[:5], want[:5]):
         assert torch.equal(_bits(a), _bits(w)), f
     assert torch.equal(got[5][0], want[5][0]) and torch.equal(got[5][1], want[5][1])
-    hit_share = float(want[0].float().mean())
-    assert 0.2 < hit_share < 0.95
     occ, counts = bvh_cuda.any_bvh(b, o, d, tmax, excl, counts=True)
-    ref, ref_counts = bvh.bvh_any(b, o, d, tmax, excl, counts=True)
-    assert bvh_cuda.LAUNCHES["bvh_any"] == n0["bvh_any"] + 1
-    assert torch.equal(occ, ref)
-    assert torch.equal(counts[0], ref_counts[0]) and torch.equal(counts[1], ref_counts[1])
-    assert 0.05 < float(ref.float().mean()) < 0.95
-    # The on-plane axis rays: NaN in the root box's slab test, so no step
-    # past the root.
-    on_plane = slice(1000, None)
-    assert int(want[5][0][on_plane].max()) == 1 and not bool(want[0][on_plane].any())
+    ref = bvh.bvh_any(b, o, d, tmax, excl, counts=True)
+    assert bvh_cuda.LAUNCHES["bvh_any"] == n0["bvh_any"] + launches
+    assert torch.equal(occ, ref[0])
+    assert torch.equal(counts[0], ref[1][0]) and torch.equal(counts[1], ref[1][1])
+    return want, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BVH_CASES)
+def test_bvh_kernels_equal_plain_on_card(case, cuda_device):
+    """B1 and B2 bitwise equal to the plain walk (accel/bvh.py) on the
+    card, with equal per-ray step and leaf-test counts; each launch
+    counted, the plain walk launching nothing, and no launch for no rays."""
+    from chiaroscuro_tpu_torch.accel import bvh
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+
+    b, o, d, tmax, excl = _bvh_rays(case, cuda_device)
+    want, ref = _bvh_equal(bvh_cuda, bvh, b, o, d, tmax, excl)
+    assert want[0].shape[0] == {"R=0": 0, "R=1": 1, "R=33": 33, "R=4097": 4097,
+                                "long": 64}.get(case, o.shape[0])
+    if case == "R=4097":
+        assert 0.05 < float(ref[0].float().mean()) < 0.95
+    if case in ("cornell", "atrium"):
+        assert 0.2 < float(want[0].float().mean()) < 0.95
+        assert 0.05 < float(ref[0].float().mean()) < 0.95
+        # The on-plane axis rays: NaN in the root box's slab test, so no
+        # step past the root.
+        on_plane = slice(1000, None)
+        assert int(want[5][0][on_plane].max()) == 1 and not bool(want[0][on_plane].any())
+    if case == "long":
+        steps = want[5][0]
+        others = torch.ones(64, dtype=torch.bool, device=cuda_device)
+        others[[5, 49]] = False
+        assert int(steps[others].max()) == 1 and int(steps[5]) >= 30
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_on_concurrent_streams(cuda_device):
+    """B1 and B2 launched in turns on two streams, each stream's launches
+    queued behind the other's, stay bitwise equal to the plain walk: each
+    stream has its own work counters."""
+    from chiaroscuro_tpu_torch.accel import bvh
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+
+    cases = [_bvh_rays(c, cuda_device) for c in ("R=4097", "random order")]
+    want = [(bvh.bvh_closest(b, o, d), bvh.bvh_any(b, o, d, tm, ex)) for b, o, d, tm, ex in cases]
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    torch.cuda.synchronize()
+    got = [[] for _ in cases]
+    for _ in range(3):
+        for k, ((b, o, d, tm, ex), stream) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(stream):
+                got[k].append((bvh_cuda.closest_bvh(b, o, d), bvh_cuda.any_bvh(b, o, d, tm, ex)))
+    torch.cuda.synchronize()
+    for k, (closest, occ) in enumerate(want):
+        for hit, blocked in got[k]:
+            for a, w in zip(hit, closest):
+                assert torch.equal(_bits(a), _bits(w))
+            assert torch.equal(blocked, occ)
 
 
 @pytest.mark.cuda

@@ -116,6 +116,29 @@ def test_scene_tensors_equal_scene_arrays(name, tmp_path):
         assert st.tex_data.shape[0] == 24 and st.n_point_lights == 1
 
 
+def test_scene_tensors_has_every_scene_arrays_property():
+    """Every public property of the JAX ``SceneArrays`` exists on
+    ``SceneTensors`` and reads the same, on a lit and an unlit scene."""
+    import inspect
+
+    from chiaroscuro_tpu.scene.scene_arrays import SceneArrays
+    from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
+
+    props = [n for n, m in inspect.getmembers(SceneArrays, lambda m: isinstance(m, property))
+             if not n.startswith("_")]
+    assert "has_lights" in props
+    missing = [n for n in props if not isinstance(getattr(SceneTensors, n, None), property)]
+    assert not missing, missing
+    lit = (build_scene_tensors(builtin.cornell_box(), device="cpu"),
+           build_scene_arrays(jax_builtin.cornell_box()))
+    dark = (dataclasses.replace(lit[0], n_lights=0), dataclasses.replace(lit[1], n_lights=0))
+    for st, sa in (lit, dark):
+        for n in props:
+            if n != "device":
+                assert getattr(st, n) == getattr(sa, n), n
+    assert lit[0].has_lights and not dark[0].has_lights
+
+
 def test_scene_tensors_from_numpy_round_trips():
     st = build_scene_tensors(builtin.cornell_box(), device="cpu")
     fields = {k: getattr(st, k).numpy() for k in DATA_FIELDS}

@@ -12,7 +12,10 @@ package's ``tools/``, on the CPU, with the same numpy-seeded inputs:
   constants and definitions are taken from its source.  The two sum in
   different orders: rtol 2e-6;
 - the dense comparison's inputs (``tools/dense_compare.py``): its seeded
-  queries and the wavefronts it records from the integrator.
+  queries and the wavefronts it records from the integrator;
+- the BVH comparison (``tools/bvh_compare.py``): the per-lane and per-warp
+  bound counts it takes from ``chip_smoke.walk_ops`` against a brute count,
+  and its inputs and checks on a small atrium with the plain walk.
 """
 
 import ast
@@ -32,6 +35,7 @@ from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
 from chiaroscuro_tpu_torch.render.renderer import render_samples
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
 from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
+from chiaroscuro_tpu_torch.tools import bvh_compare as bcmp
 from chiaroscuro_tpu_torch.tools import cull_experiments as xc
 from chiaroscuro_tpu_torch.tools import dense_compare as dcmp
 from chiaroscuro_tpu_torch.tools import dma_min as dm
@@ -242,3 +246,58 @@ def test_dense_compare_inputs_on_cpu():
         assert set(q) == {"live", "o3", "d3", "tmax", "excl"}
         occ = ic.any_dense(q["live"], q["o3"], q["d3"], q["tmax"], q["excl"], rows)
         assert occ.shape == q["tmax"].shape
+
+
+@pytest.mark.parametrize("order", ["wavefront", "random"])
+def test_walk_ops_against_a_brute_count(order):
+    """Per lane: 25 operations a step and 54 a test over the rays; per
+    warp: each group of 32 rays (in the order given, the last group short)
+    pays 32 x its longest walk, and the SIMT efficiency is at most 1."""
+    rng = np.random.default_rng(7)
+    R = 32 * 9 + 5
+    steps = torch.from_numpy(rng.integers(1, 300, R)).to(torch.int32)
+    tests = torch.from_numpy(rng.integers(0, 60, R)).to(torch.int32)
+    perm = None if order == "wavefront" else torch.from_numpy(rng.permutation(R))
+    walk_ops = bcmp.smoke_module().walk_ops
+    lane, warp = walk_ops(steps, tests, order=perm)
+    s, t = steps.numpy().astype(np.int64), tests.numpy().astype(np.int64)
+    if perm is not None:
+        s, t = s[perm.numpy()], t[perm.numpy()]
+    want_warp = sum(32 * (25 * int(s[i:i + 32].max()) + 54 * int(t[i:i + 32].max()))
+                    for i in range(0, R, 32))
+    assert lane == 25 * int(s.sum()) + 54 * int(t.sum())
+    assert warp == want_warp and lane <= warp
+    same = torch.full((64,), 7, dtype=torch.int32)
+    assert walk_ops(same, same) == (64 * 79 * 7, 64 * 79 * 7)
+    text, d = bcmp.bound_text((steps, tests), torch.from_numpy(rng.permutation(R)))
+    assert 0 < d["simt"] <= 1 and 0 < d["simt_random"] <= 1 and "per warp" in text
+
+
+def test_bvh_compare_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the comparison runs on it")
+    with pytest.raises(RuntimeError, match="card"):
+        bcmp.main(["--root", REPO])
+
+
+def test_bvh_compare_inputs_on_cpu(monkeypatch):
+    """On a small atrium at 64x32 (the CPU walks the plain version): the
+    comparison's wavefronts (chip_smoke.py's, with the pixel-order bounce)
+    pass its checks against the plain walk."""
+    from chiaroscuro_tpu_torch.accel import bvh as bvh_mod
+    from chiaroscuro_tpu_torch.ops import bvh_cuda as bc
+    from chiaroscuro_tpu_torch.scene.synthetic import atrium
+
+    monkeypatch.setattr(bcmp, "turns", lambda fn, reps: (fn(), (1.0, [1.0, 1.0]))[1])
+    monkeypatch.setattr(bcmp, "ROW_SAMPLE", 3)
+    smoke = bcmp.smoke_module()
+    monkeypatch.setattr(smoke, "ROW_SAMPLE", 4)
+    cpu = torch.device("cpu")
+    scene = build_scene_tensors(atrium(2_200, seed=5), device=cpu)
+    b = bvh_mod.build_bvh(scene)
+    waves, _, _ = smoke.atrium_wavefronts(scene, 64, 32, cpu, pixel_bounce=True)
+    rng = np.random.default_rng(1)
+    for w in ("primary", "bounce", "shadow", "bounce, pixel order"):
+        res = bcmp.measure(bc, bvh_mod, b, waves[w], rng, w)
+        assert res["rays"] == 64 * 32
+        assert res["lane_us"] <= res["warp_us"] and res["steps_max"] >= res["steps_mean"]
