@@ -15,6 +15,12 @@ numpy, never jax or ``chiaroscuro_tpu``:
              cluster cull and the cluster visits
   render/    wavefront integrator, renderer, tone map, image I/O
   utils/     accumulation-state files, phase timing and profiling
+  preview/   the interactive preview: fly camera, raster walk-through frame
+  parallel/  tile-sharded rendering and gradient all-reduce on
+             torch.distributed, multi-process set-up, rank sweeps
+  tools/     the cull shootout and the block-fetch repro, kernel comparisons
+             between checkouts
+  entry.py   the forward step and the multi-rank differentiable dry run
 
 The batch render: ``python -m chiaroscuro_tpu_torch scene.rtc no-preview``.
 """

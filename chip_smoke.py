@@ -174,6 +174,29 @@ raises, exits non-zero and prints no result line.
    at trip 0, 5, 16 and 19, and timed beside it and ``big[:trip*M].sum(0)``:
    the loop by CUDA events, and X2's and the library call's own kernel
    time by torch.profiler over the same loop.
+7. The sharded path (``parallel/``): ranks spawned by
+   ``parallel/scaling.run_ranks``, each building its scenes from their
+   specs, run three frames through ``render_frame_sharded`` (Cornell
+   ``scenes/cornell.rtc`` at 768x768, k 6, SHARD_SPP spp through ``auto``,
+   K1/K2; the 481k atrium at 1280x720, 1 spp, k 3 through ``auto``, K3 +
+   K6/K7 on the route ``stream``; the same atrium through ``intersector
+   bvh``, B1/B2) and two gradient steps through ``sharded_value_and_grad``
+   (Cornell 512x512 x 2 spp x k 6 through ``dense`` w.r.t. kd, ke and the
+   vertices; the 262k atrium at 1280x720 x 1 spp x k 3 through ``cluster``,
+   route ``resident``, K3 + K4/K5, w.r.t. kd and ke with
+   ``checkpoint=True``), the MSE against a black target.  (a) One NCCL
+   rank: each frame bitwise equal to ``render_samples`` over the whole grid
+   in this process, with the rank's launches: one K1 and one K2 a sample x
+   bounce, two K3 and one K6 and K7, one B1 and B2.  (b) Two gloo ranks on
+   the card (NCCL refuses two ranks on one device): every rank's frame
+   bitwise equal to (a)'s and each rank's launches as in (a).  (c) Their
+   all-reduced losses within rtol 1e-6 and each gradient within 1e-5
+   relative L1 of (a)'s (only the order of the float sums differs).  (d)
+   ``entry.dryrun_multichip(1)``.  (e) One gloo rank times the frames too:
+   the scaling report (``scaling.scaling_report``, what ``measure_scaling``
+   returns) of each frame at 1 and 2 gloo ranks, with the NCCL rank's ms.
+   Two ranks share the one card, so no report is a scaling efficiency.
+   The ranks' launches in (a) and (b) count on the main path.
 
 The line before the last is a JSON object of the kernels: for each, the
 launches of its path (K1-K7, B1/B2: the main-path renders of phases 3-3g, counts
@@ -231,6 +254,8 @@ NANO_RES = (1024, 1024)    # the 19k frame, bench.py's nanosuit shape
 DENSE_ATRIUM_TRIS = 4000   # synthetic:atrium:4000: 4,040 triangles, the dense path
 PHONG_CORNELL = (0.5, 50.0)  # Ks and Ns of the glossy Cornell blocks (phase 3f)
 PHONG_ATRIUM = (0.3, 40.0)   # Ks and Ns of every non-emissive atrium mesh (phase 3f)
+SHARD_SPP = 4              # samples of phase 7's Cornell frame
+SHARD_GRAD_RES = (512, 512)   # phase 7's Cornell gradient frame, 2 spp x k 6
 
 # Bounds (H100 SXM peak rates).  With
 # -fmad=false every add and multiply is its own instruction, so the FP32
@@ -1524,6 +1549,48 @@ def compare_grads(what, card, cpu, rel=1e-3):
         raise AssertionError(f"{what}: card gradients differ from the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the sharded path.
+# ---------------------------------------------------------------------------
+
+
+def shard_jobs(ps, RenderConfig, repo, cam):
+    """Phase 7's frames and gradient steps, as ``parallel/scaling.RankJob``s."""
+    atrium_tokens = ["input", "synthetic:atrium", "xres", str(ATRIUM_RES[0]), "yres",
+                     str(ATRIUM_RES[1]), "samples", "1", "k", str(ATRIUM_K), *cam]
+    cornell = RenderConfig.from_rtc(os.path.join(repo, "scenes", "cornell.rtc"),
+                                    ["samples", str(SHARD_SPP), "no-preview"])
+    frames = [ps.RankJob(cornell),
+              ps.RankJob(RenderConfig.from_tokens(atrium_tokens + ["intersector", "auto"])),
+              ps.RankJob(RenderConfig.from_tokens(atrium_tokens + ["intersector", "bvh"]))]
+    grad_cornell = RenderConfig.from_rtc(
+        os.path.join(repo, "scenes", "cornell.rtc"),
+        ["samples", "2", "xres", str(SHARD_GRAD_RES[0]), "yres", str(SHARD_GRAD_RES[1]),
+         "intersector", "dense", "no-preview"])
+    grad_mid = RenderConfig.from_tokens(
+        atrium_tokens + ["input", f"synthetic:atrium:{MID_TRIS}", "intersector", "cluster"])
+    grads = [ps.RankJob(grad_cornell, fields=("kd", "ke", "tri_v0", "tri_v1", "tri_v2")),
+             ps.RankJob(grad_mid, fields=("kd", "ke"), checkpoint=True)]
+    return frames, grads
+
+
+def shard_frame_want(cc, job):
+    """The launches one rank makes for a phase 7 frame: its path's kernels
+    once a sample x bounce (the cluster path culls twice)."""
+    cfg = job.cfg
+    per = {"auto": {"closest": 1, "any": 1}, "bvh": {"bvh_closest": 1, "bvh_any": 1}}
+    if cfg.obj_path.startswith("synthetic:") and cfg.intersector == "auto":
+        closest, occlusion = cc.ROUTES["stream"]
+        per["auto"] = {"cull": 2, closest: 1, occlusion: 1}
+    return {k: m * cfg.samples * cfg.k for k, m in per[cfg.intersector].items()}
+
+
+def shard_label(job):
+    cfg = job.cfg
+    return (f"{cfg.obj_path} {cfg.xres}x{cfg.yres} x {cfg.samples} spp x k{cfg.k} "
+            f"({cfg.intersector})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2544,6 +2611,97 @@ def main() -> int:
                       f"({k} kernels recorded for 100 calls)" for n, (u, k) in x2_dev.items())
           + f"; bound {x2_bound[0] * 1e3:.3f} us ({x2_bound[1]})")
     lap("phase 6")
+    # --- phase 7: the sharded path (parallel/) -----------------------------------
+    from chiaroscuro_tpu_torch import entry as pentry
+    from chiaroscuro_tpu_torch.parallel import scaling as ps
+    from chiaroscuro_tpu_torch.parallel.sharding import _pixel_grid
+
+    t7 = lap_t[0]
+    frame_jobs, grad_jobs = shard_jobs(ps, RenderConfig, repo, cam)
+    jobs = frame_jobs + grad_jobs
+    one = ps.run_ranks(1, jobs, iters=2)                      # NCCL
+    lap("phase 7a, 1 NCCL rank")
+    two = ps.run_ranks(2, jobs, backend="gloo", iters=2)      # two ranks on one card
+    lap("phase 7b, 2 gloo ranks")
+    for rank in one + two:
+        for result in rank:
+            add_launches(result["launches"])
+    # (a), (b): every frame against render_samples over the whole grid here.
+    scenes = {}
+    for j, job in enumerate(frame_jobs):
+        cfg = job.cfg
+        if cfg.obj_path not in scenes:
+            scenes[cfg.obj_path] = load_scene(cfg, dev)
+        scene = scenes[cfg.obj_path]
+        cf, af = make_intersectors(scene, cfg.intersector)
+        xs, ys = (torch.from_numpy(a).to(dev) for a in _pixel_grid(cfg.xres, cfg.yres))
+        with torch.no_grad():
+            want = render_samples(scene, cfg.vp, cfg.la, cfg.up, cfg.yview, cfg.xres,
+                                  cfg.yres, xs, ys, 0, cfg.samples, cfg.seed, cfg.k,
+                                  cfg.background, cf, af).reshape(cfg.yres, cfg.xres, 3).cpu()
+        want_launches = shard_frame_want(cc, job)
+        for run, what in ((one, "1 NCCL rank"), (two, "2 gloo ranks")):
+            for r, rank in enumerate(run):
+                got = rank[j]
+                if not torch.equal(bits(got["frame"]), bits(want)):
+                    raise AssertionError(f"{shard_label(job)}: rank {r} of {what} differs "
+                                         "from render_samples over the whole grid")
+                launched = {k: n for k, n in got["launches"].items() if n}
+                if launched != want_launches:
+                    raise AssertionError(f"{shard_label(job)}: rank {r} of {what} launched "
+                                         f"{launched}, not {want_launches}")
+        print(f"[shard] {shard_label(job)}: 1 NCCL rank and both of 2 gloo ranks bitwise "
+              f"equal to render_samples over the whole grid; each rank launched "
+              f"{want_launches} (route {one[0][j]['route'] or cfg.intersector}); mean "
+              f"{float(want.mean())}")
+    del scenes, scene, cf, af
+    torch.cuda.empty_cache()
+    # (c): the gradients of 2 gloo ranks against 1 NCCL rank's.
+    for j, job in enumerate(grad_jobs, start=len(frame_jobs)):
+        ref = one[0][j]
+        if not (ref["launches"].get("closest") or ref["launches"].get("closest_resident")):
+            raise AssertionError(f"{shard_label(job)}: the gradient step launched no "
+                                 f"closest-hit kernel: {ref['launches']}")
+        for r, rank in enumerate(two):
+            got = rank[j]
+            loss_rel = abs(float(got["loss"]) - float(ref["loss"])) / abs(float(ref["loss"]))
+            rels = {}
+            for k, g in ref["grads"].items():
+                total = float(g.double().abs().sum())
+                diff = float((got["grads"][k].double() - g.double()).abs().sum())
+                rels[k] = diff / total if total else diff
+                if not bool(torch.isfinite(got["grads"][k]).all()):
+                    raise AssertionError(f"{shard_label(job)}: non-finite d/d{k}")
+            print(f"[shard] {card}: {shard_label(job)} fwd+bwd w.r.t. {job.fields}"
+                  f"{', checkpoint=True' if job.checkpoint else ''}: rank {r} of 2 gloo ranks "
+                  f"against 1 NCCL rank: loss {float(got['loss'])} vs {float(ref['loss'])} "
+                  f"(rel {loss_rel}); sum|d|/sum|g| "
+                  + ", ".join(f"d/d{k} {v}" for k, v in rels.items())
+                  + f" (sum|g| {', '.join(f'{k} {float(g.abs().sum())}' for k, g in ref['grads'].items())}); "
+                  f"ms 1 NCCL rank {ref['ms']:.1f}, this rank {got['ms']:.1f}; launches of "
+                  f"this rank {dict((k, n) for k, n in got['launches'].items() if n)}")
+            if loss_rel > 1e-6 or any(v > 1e-5 for v in rels.values()):
+                raise AssertionError(f"{shard_label(job)}: 2 ranks' gradients differ from "
+                                     "1 rank's beyond the stated bounds")
+    lap("phase 7c, checks")
+    # (d): the dry run on the card.
+    pentry.dryrun_multichip(1)
+    lap("phase 7d, dryrun_multichip(1)")
+    # (e): the scaling reports, 1 and 2 gloo ranks on the one card.
+    gloo_one = ps.run_ranks(1, frame_jobs, backend="gloo", iters=2)
+    for j, job in enumerate(frame_jobs):
+        report = ps.scaling_report(job, [1, 2], [[r[j] for r in gloo_one],
+                                                 [r[j] for r in two]], "cuda")
+        if not report["bitwise_equal"]:
+            raise AssertionError(f"{shard_label(job)}: 1 and 2 gloo ranks' frames differ")
+        print(ps.format_report(report))
+        print(f"[timing] {card}: phase 7 {shard_label(job)}, best of 2 frames between "
+              f"barriers: 1 NCCL rank {one[0][j]['ms']:.1f} ms, 1 gloo rank "
+              f"{gloo_one[0][j]['ms']:.1f} ms, 2 gloo ranks on the one card "
+              f"{two[0][j]['ms']:.1f} ms")
+    lap("phase 7e, 1 gloo rank and the reports")
+    lap_t[0] = t7
+    lap("phase 7")
     # Launches above for comparison and timing do not count: the counts
     # are the tool phase's.
 

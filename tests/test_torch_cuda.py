@@ -7,8 +7,10 @@ X2 (the double-buffered block fetch); K4/K5 also against K6/K7, the
 per-warp visit counts against the torch replay of the exit rule, and the
 card's gradients against the CPU's; the Phong extension's renders through
 K1/K2, K4/K5 and K6/K7 and its gradients against the CPU's,
-``spp_batch`` against one sample a wavefront, and B1/B2 (the threaded-BVH
-walks) against their plain walk, with a BVH render against the CPU's.
+``spp_batch`` against one sample a wavefront, B1/B2 (the threaded-BVH
+walks) against their plain walk, with a BVH render against the CPU's, and
+the tile-sharded frames and gradients of ``parallel/`` on one NCCL rank and
+on two gloo ranks sharing the card.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -893,3 +895,81 @@ def test_bvh_render_card_matches_cpu(cuda_device):
     assert float(np.abs(img - ref)[inside].mean()) <= 1e-4 * mean
     assert float(np.abs(img - ref).mean()) <= 1e-3 * mean
     assert (~inside).mean() <= 0.005
+
+
+# ---------------------------------------------------------------------------
+# Tile-sharded rendering and gradient all-reduce (parallel/) on the card.
+# ---------------------------------------------------------------------------
+
+SHARDED_INTERSECTORS = ("auto", "cluster", "bvh")   # K1/K2, K3 + K4/K5, B1/B2
+# Launches a sample x bounce on each path (the cluster path culls twice).
+SHARDED_WANT = {"auto": {"closest": 1, "any": 1},
+                "cluster": {"cull": 2, "closest_resident": 1, "any_resident": 1},
+                "bvh": {"bvh_closest": 1, "bvh_any": 1}}
+
+
+def _sharded_cfg(intersector):
+    from chiaroscuro_tpu_torch.scene.config import RenderConfig
+    from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA as cam
+
+    return RenderConfig(obj_path="synthetic:atrium:2200", xres=160, yres=90, samples=2, k=2,
+                        intersector=intersector, vp=cam["eye"], la=cam["center"],
+                        up=cam["up"], yview=cam["yview"], use_preview=False)
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks():
+    """atrium(2_200)'s 160x90 frames through the three paths and a dense
+    Cornell (kd, ke, tri_v0) gradient step, on one NCCL rank and on two
+    gloo ranks sharing the card: {world size: per rank, one result a job}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from chiaroscuro_tpu_torch.parallel.scaling import RankJob, run_ranks
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA as cam
+    from chiaroscuro_tpu_torch.scene.config import RenderConfig
+
+    grad_cfg = RenderConfig(obj_path="builtin:cornell_box", xres=64, yres=64, samples=2, k=3,
+                            intersector="dense", vp=cam["eye"], la=cam["center"],
+                            up=cam["up"], yview=cam["yview"], use_preview=False)
+    jobs = [RankJob(_sharded_cfg(n)) for n in SHARDED_INTERSECTORS]
+    jobs.append(RankJob(grad_cfg, fields=("kd", "ke", "tri_v0")))
+    return {1: run_ranks(1, jobs), 2: run_ranks(2, jobs, backend="gloo")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+@pytest.mark.parametrize("name", SHARDED_INTERSECTORS)
+def test_sharded_frames_on_card_equal_render_samples(name, world, sharded_ranks):
+    """The 1-rank NCCL frame and the 2-rank gloo frame (every rank's) are
+    bitwise equal to ``render_samples`` over the whole grid in this
+    process, and each rank launched its path's kernels."""
+    from chiaroscuro_tpu_torch.render.renderer import render_image
+    from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
+
+    cfg = _sharded_cfg(name)
+    dev = torch.device("cuda", 0)
+    with torch.no_grad():
+        want = render_image(load_scene(cfg, dev), cfg).cpu()
+    j = SHARDED_INTERSECTORS.index(name)
+    for rank in sharded_ranks[world]:
+        got = rank[j]
+        assert torch.equal(_bits(got["frame"]), _bits(want))
+        assert {k: n for k, n in got["launches"].items() if n} == {
+            k: m * cfg.samples * cfg.k for k, m in SHARDED_WANT[name].items()}
+
+
+@pytest.mark.cuda
+def test_sharded_gradients_on_card_two_ranks_match_one(sharded_ranks):
+    """Two gloo ranks' all-reduced loss and (kd, ke, tri_v0) gradients
+    through K1/K2 against one NCCL rank's: loss rtol 1e-6, each gradient
+    within 1e-5 relative L1 (only the order of the float sums differs)."""
+    one, two = sharded_ranks[1][0][-1], sharded_ranks[2]
+    assert one["launches"]["closest"] > 0
+    for rank in two:
+        got = rank[-1]
+        torch.testing.assert_close(got["loss"], one["loss"], rtol=1e-6, atol=0)
+        for k, ref in one["grads"].items():
+            assert float(ref.abs().sum()) > 0, k
+            rel = float((got["grads"][k].double() - ref.double()).abs().sum()
+                        / ref.double().abs().sum())
+            assert rel <= 1e-5, (k, rel)
