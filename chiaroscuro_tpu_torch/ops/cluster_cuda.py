@@ -11,6 +11,11 @@ The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
   :func:`_order_hits` (torch ops, as ``lax.sort`` on the TPU): meta (B0, 2)
   int32 [trip, overflow], ids (B0, Le) int32, nears (B0, Le) f32, cutoff
   (B0, 1) f32, Le = min(Lmax, K).
+- ``cull_beam`` is K3b (``_cull_rows_beam`` :294, ``_rowhit_beam`` :226),
+  the opt-in conservative cull: each row's origin and direction bounds
+  against every box by interval arithmetic (:func:`cull_beam_sweep`: on a
+  card ``csrc/cull_beam.cu``; plain :func:`cull_beam_sweep_plain`), the
+  same count and keys, then the same :func:`_order_hits`.
 - ``closest_resident`` is K4 (``_closest_kernel`` :485) and ``any_resident``
   K5 (``_any_kernel`` :550); ``closest_cluster`` is K6
   (``_stream_closest_kernel`` :627) and ``any_cluster`` K7
@@ -44,14 +49,17 @@ Gradients (``cluster_pallas.py:1158-1197``): :func:`closest_cluster_diff`
 runs K4 or K6 forward and recomputes the winner's t, u, v and attribute
 row from the original-order (T, 9) triangle rows and (T, 32) attribute
 table in backward (:func:`~chiaroscuro_tpu_torch.ops.intersect_cuda.
-closest_hit`); the packed matrix is built from detached geometry and gets
-no gradient, and occlusion is a discrete decision taken on detached inputs.
+closest_hit`), fetching them by a gather as ``cluster_pallas.py:1180``
+does (the dense path's one-hot rule is not the cluster path's); the packed
+matrix is built from detached geometry and gets no gradient, and occlusion
+is a discrete decision taken on detached inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
@@ -64,6 +72,7 @@ from chiaroscuro_tpu_torch.ops.intersect_cuda import (
     BIG,
     LANE,
     _check,
+    _gather_fetch,
     _launch_device,
     _mt_core,
     closest_hit,
@@ -76,7 +85,7 @@ from chiaroscuro_tpu_torch.ops.intersect_cuda import (
 # Kernel launch counts, by kernel.  Incremented only where a wrapper
 # launches its kernel; the plain versions never count.
 LAUNCHES = {
-    "cull": 0,
+    "cull": 0, "cull_beam": 0,                    # K3, K3b
     "closest_resident": 0, "any_resident": 0,     # K4, K5
     "closest_cluster": 0, "any_cluster": 0,       # K6, K7
 }
@@ -269,6 +278,127 @@ def cull(o3, d3, bmin, bmax, Le, tmax=None):
         raise ValueError(f"list width Le={Le} must lie in [1, K={K}]")
     count, key, _ = cull_sweep(o3, d3, bmin, bmax, tmax)
     return _order_hits(count, key, Le)
+
+
+# ---------------------------------------------------------------------------
+# K3b: the beam cull.
+# ---------------------------------------------------------------------------
+
+
+def cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax=None):
+    """Plain torch K3b sweep: the JAX package's ``_rowhit_beam``
+    (``cluster_pallas.py:226``) op for op.  Per row, the lane min/max of
+    origin and direction on each axis; on the ``definite`` axes (the row's
+    directions all of one sign) the interval of each box plane's t from the
+    four endpoint products of [plane - O_hi, plane - O_lo] and the
+    reciprocals' [q_lo, q_hi]; ``near_lo`` the max over axes of the planes'
+    lower ends (from -BIG), ``far_hi`` the min of their upper ends (from
+    BIG); ``hit = far_hi >= near_lo and far_hi >= 0`` (and, with ``tmax``,
+    ``near_lo <=`` the row's largest tmax).  Returns :func:`cull_sweep`'s
+    count (B0,) int32 and key (B0, K) f32: max(near_lo, 0) + 0.0 where hit
+    (+0.0 as K3's), BIG where not.  Chunked over K so that the (B0, K)
+    temporaries stay O(_PLAIN_PAIRS)."""
+    B0, K = o3.shape[1], bmin.shape[0]
+    bounds = []
+    for a in range(3):
+        d_lo, d_hi = d3[a].amin(dim=1), d3[a].amax(dim=1)
+        definite = (d_lo > 0.0) | (d_hi < 0.0)                     # (B0,)
+        i_lo = 1.0 / torch.where(definite, d_lo, 1.0)
+        i_hi = 1.0 / torch.where(definite, d_hi, 1.0)
+        bounds.append((o3[a].amin(dim=1)[:, None], o3[a].amax(dim=1)[:, None],
+                       torch.minimum(i_lo, i_hi)[:, None],
+                       torch.maximum(i_lo, i_hi)[:, None], definite[:, None]))
+
+    def t_interval(plane, o_lo, o_hi, q_lo, q_hi):
+        p_lo, p_hi = plane[None, :] - o_hi, plane[None, :] - o_lo
+        t1, t2, t3, t4 = p_lo * q_lo, p_lo * q_hi, p_hi * q_lo, p_hi * q_hi
+        return (torch.minimum(torch.minimum(t1, t2), torch.minimum(t3, t4)),
+                torch.maximum(torch.maximum(t1, t2), torch.maximum(t3, t4)))
+
+    t_row = None if tmax is None else tmax.amax(dim=1)[:, None]
+    chunk = max(1, min(K, _PLAIN_PAIRS // max(B0, 1)))
+    counts, keys = torch.zeros((B0,), dtype=torch.int32, device=o3.device), []
+    for base in range(0, K, chunk):
+        near_lo = torch.full((B0, 1), -BIG, dtype=torch.float32, device=o3.device)
+        far_hi = torch.full((B0, 1), BIG, dtype=torch.float32, device=o3.device)
+        for a, (o_lo, o_hi, q_lo, q_hi, definite) in enumerate(bounds):
+            tn_lo, tn_hi = t_interval(bmin[base:base + chunk, a], o_lo, o_hi, q_lo, q_hi)
+            tf_lo, tf_hi = t_interval(bmax[base:base + chunk, a], o_lo, o_hi, q_lo, q_hi)
+            near_lo = torch.maximum(near_lo, torch.where(definite, torch.minimum(tn_lo, tf_lo), -BIG))
+            far_hi = torch.minimum(far_hi, torch.where(definite, torch.maximum(tn_hi, tf_hi), BIG))
+        hit = (far_hi >= near_lo) & (far_hi >= 0.0)
+        if t_row is not None:
+            hit = hit & (near_lo <= t_row)
+        counts += hit.sum(dim=1, dtype=torch.int32)
+        keys.append(torch.where(hit, torch.clamp_min(near_lo, 0.0) + 0.0, BIG))
+    key = torch.cat(keys, dim=1) if keys else o3.new_empty((B0, 0))
+    return counts, key.contiguous()
+
+
+@functools.cache
+def build_cull_beam() -> tuple:
+    """Build and load ``csrc/cull_beam.cu`` (``ops/cuda_build.py``);
+    returns ``(lib, info)``.  A failed build raises."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return bind("cull_beam", {"cull_beam_launch": [vp] * 5 + [ci, ci] + [vp] * 3})
+
+
+def cull_beam_sweep(o3, d3, bmin, bmax, tmax=None):
+    """K3b's sweep: the conservative per-row interval test of every box
+    (:func:`cull_beam_sweep_plain`), with :func:`cull_sweep`'s inputs and
+    its (count (B0,) int32, key (B0, K) f32).  With K = 0 nothing is
+    launched (on either device).  On CUDA tensors it launches
+    ``csrc/cull_beam.cu`` (built by ``nvcc`` for ``sm_90a`` at first use,
+    bound with ``ctypes``) and counts it in ``LAUNCHES["cull_beam"]``, or
+    raises; on CPU tensors it takes the plain version.  The inputs are
+    taken detached."""
+    o3, d3 = o3.detach(), d3.detach()
+    if tmax is not None:
+        tmax = tmax.detach()
+    device = _launch_device(o3, d3, bmin, bmax)
+    B0, K = o3.shape[1], bmin.shape[0]
+    _check("o3", o3, (3, B0, LANE), torch.float32, device)
+    _check("d3", d3, (3, B0, LANE), torch.float32, device)
+    _check("bmin", bmin, (K, 3), torch.float32, device)
+    _check("bmax", bmax, (K, 3), torch.float32, device)
+    if tmax is not None:
+        _check("tmax", tmax, (B0, LANE), torch.float32, device)
+    if K == 0:
+        return (torch.zeros((B0,), dtype=torch.int32, device=device),
+                torch.empty((B0, 0), dtype=torch.float32, device=device))
+    if device.type == "cpu":
+        return cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
+    lib, _ = build_cull_beam()
+    key = torch.empty((B0, K), dtype=torch.float32, device=device)
+    count = torch.empty((B0,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.cull_beam_launch(
+            o3.data_ptr(), d3.data_ptr(), None if tmax is None else tmax.data_ptr(),
+            bmin.data_ptr(), bmax.data_ptr(), B0, K, key.data_ptr(),
+            count.data_ptr(), stream,
+        )
+    check_launch(lib, err, "cull_beam")
+    LAUNCHES["cull_beam"] += 1
+    return count, key
+
+
+def cull_beam_plain(o3, d3, bmin, bmax, Le, tmax=None):
+    """Plain torch K3b: same inputs and outputs as :func:`cull_beam`."""
+    return _order_hits(*cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax), Le)
+
+
+def cull_beam(o3, d3, bmin, bmax, Le, tmax=None):
+    """K3b: the conservative per-row beam cull (``_cull_rows_beam``,
+    ``cluster_pallas.py:294``), :func:`cull`'s inputs and (meta, ids,
+    nears, cutoff): the sweep (:func:`cull_beam_sweep`), then
+    :func:`_order_hits`, the epilogue both culls share.  Its lists hold
+    every box K3's hold (and more), with lower entries, so the visits'
+    results do not change; the inputs are taken detached."""
+    K = bmin.shape[0]
+    if not 1 <= Le <= K:
+        raise ValueError(f"list width Le={Le} must lie in [1, K={K}]")
+    return _order_hits(*cull_beam_sweep(o3, d3, bmin, bmax, tmax), Le)
 
 
 # ---------------------------------------------------------------------------
@@ -669,7 +799,7 @@ def closest_cluster_diff(lists, o3, d3, tri_orig, attrs, packed, route):
     def fwd(o3, d3, _tri_orig, attrs):
         return _closest_visit(kernel, *lists, o3, d3, packed, attrs, None)
 
-    return closest_hit(fwd, o3, d3, tri_orig, attrs)
+    return closest_hit(fwd, o3, d3, tri_orig, attrs, fetch=_gather_fetch)
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +843,7 @@ def make_cluster_intersectors(
     Lmax: int | None = None,
     clusters: ClusterArrays | None = None,
     stream: bool | None = None,
+    beam: bool | None = None,
 ):
     """Cluster-culled intersector pair for large scenes
     (``cluster_pallas.py:991``), speaking the same interface as
@@ -727,12 +858,20 @@ def make_cluster_intersectors(
     applies the JAX package's rule (:func:`streams_by_budget`): the
     resident K4/K5 while the packed matrix is within 72 MiB, else the
     streaming K6/K7; ``stream=True``/``False`` forces a route on any scene.
+    ``beam=True`` culls with K3b (:func:`cull_beam`, the conservative
+    per-row test) in place of K3, for the closest and the occlusion query
+    alike; ``beam=None`` reads ``CHIAROSCURO_BEAM_CULL`` (``1``/``true``
+    turns it on) at each call, as ``cluster_pallas.py:1096`` does.  The
+    results do not depend on the cull; only the lists' lengths do.
 
     The closest query is differentiable with respect to the rays and the
     scene's fields (:func:`closest_cluster_diff`); occlusion is not.  The
     pair carries ``route`` (``"resident"`` or ``"stream"``) and
     ``prefers_compaction`` / ``prefers_ray_sort`` (K >= 1024), which the
-    renderer and integrator read."""
+    renderer and integrator read, and ``beam``."""
+    if beam is None:
+        beam = os.environ.get("CHIAROSCURO_BEAM_CULL", "") in ("1", "true")
+    cull_fn = cull_beam if beam else cull
     if clusters is None:
         clusters = build_clusters(
             scene.tri_v0.detach().cpu().numpy(),
@@ -754,7 +893,7 @@ def make_cluster_intersectors(
 
     def closest_planar(o3, d3) -> ClosestHit:
         o3, d3 = o3.contiguous(), d3.contiguous()
-        lists = cull(o3, d3, bmin, bmax, Le)
+        lists = cull_fn(o3, d3, bmin, bmax, Le)
         t, tid, u, v, am = closest_cluster_diff(
             lists, o3, d3, tri_orig, attrs, packed, route
         )
@@ -763,7 +902,7 @@ def make_cluster_intersectors(
     def any_planar(o3, d3, tmax, excl):
         o3, d3 = o3.detach().contiguous(), d3.detach().contiguous()
         tmax = tmax.detach().contiguous()
-        lists = cull(o3, d3, bmin, bmax, Le, tmax=tmax)
+        lists = cull_fn(o3, d3, bmin, bmax, Le, tmax=tmax)
         return _any_visit(
             ROUTES[route][1], *lists, o3, d3, tmax,
             excl.to(torch.int32).contiguous(), packed, None,
@@ -771,6 +910,7 @@ def make_cluster_intersectors(
 
     closest_fn, any_fn = row_major_pair(closest_planar, any_planar)
     closest_fn.route = any_fn.route = route
+    closest_fn.beam = any_fn.beam = beam
     closest_fn.prefers_compaction = K >= COMPACT_MIN_K
     closest_fn.prefers_ray_sort = K >= COMPACT_MIN_K
     return closest_fn, any_fn

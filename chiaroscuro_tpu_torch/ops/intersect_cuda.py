@@ -31,15 +31,20 @@ Gradients (``intersect_pallas.py:430-504``, ``_closest_diff`` and its VJP):
 triangle rows and the (T, 32) attribute table through :func:`closest_hit`,
 a ``torch.autograd.Function`` whose forward is the kernel and whose backward
 recomputes the winner's t, u, v and attribute row with torch ops.  The JAX
-package has no backward kernel either; its TPU-only one-hot backward fetch
-(``_bwd_fetch``, an MXU workaround for slow gathers) is a plain gather here.
-Occlusion is a discrete decision: ``any_dense`` takes detached inputs.
+package has no backward kernel either.  The recompute fetches the winner's
+rows by the JAX package's rule (:func:`_bwd_fetch`, ``_bwd_fetch``
+:464-477): a one-hot matrix product (:func:`onehot_fetch`, whose backward is
+another product) for tables of at most 2,048 triangles, a gather above that;
+``CHIAROSCURO_BWD_ONEHOT=0/1`` forces either form.  Occlusion is a discrete
+decision: ``any_dense`` takes detached inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
@@ -461,19 +466,124 @@ def any_dense(live, o3, d3, tmax, excl, tri_rows, table=None):
 # ---------------------------------------------------------------------------
 
 
-def _recompute_hit(o3, d3, tri_rows, attrs, tid):
+# The backward's row fetch (``intersect_pallas.py:442-477``): a one-hot
+# product for tables of at most BWD_ONEHOT_MAX_T triangles (the JAX
+# package's padded width, which is at most 2,048 exactly when the triangle
+# count is), a gather above.  CHIAROSCURO_BWD_ONEHOT = 0/false or 1/true
+# forces either form; read once, at import, as the JAX package reads it.
+def _onehot_setting(value: str):
+    """A CHIAROSCURO_BWD_ONEHOT value: True, False, or None for the size
+    rule (unset, empty or anything else)."""
+    return {"0": False, "false": False, "1": True, "true": True}.get(value.lower())
+
+
+_BWD_ONEHOT = _onehot_setting(os.environ.get("CHIAROSCURO_BWD_ONEHOT", ""))
+BWD_ONEHOT_MAX_T = 2048
+# The largest one-hot block :func:`onehot_fetch` builds at once, in bytes.
+ONEHOT_BUDGET_BYTES = 256 * 2**20
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Float32 matrix products in full FP32 inside the block, whatever the
+    caller set (``torch.set_float32_matmul_precision("high")`` or
+    ``allow_tf32``, which would round the table to TF32's 10 mantissa bits
+    on the card, and oneDNN's bf16 on the CPU); the caller's settings are
+    restored on exit."""
+    knobs = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    saved = [m.fp32_precision for m in knobs]
+    for m in knobs:
+        m.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        for m, p in zip(knobs, saved):
+            m.fp32_precision = p
+
+
+def _onehots(idx, T):
+    """Yield (lanes, one-hot (T, n) f32) over consecutive chunks of the flat
+    ``idx``, each one-hot within ONEHOT_BUDGET_BYTES: a (T, R) one-hot of a
+    whole wavefront would take T x R x 4 bytes (34 GB at 2,048 triangles
+    and 4M lanes)."""
+    per = max(1, ONEHOT_BUDGET_BYTES // (4 * max(T, 1)))
+    rows = torch.arange(T, dtype=idx.dtype, device=idx.device)[:, None]
+    for base in range(0, idx.numel(), per):
+        lanes = slice(base, base + per)
+        yield lanes, (rows == idx[lanes][None, :]).to(torch.float32)
+
+
+class _OneHotFetch(torch.autograd.Function):
+    """``mat (W, T)`` fetched at the flat ``idx (R,)`` as ``mat @ onehot``,
+    whose backward is ``ct @ onehot.T``: a product that sums each table
+    entry's cotangents, where a gather's backward scatter-adds them.
+    Both run chunk by chunk (:func:`_onehots`) in full FP32
+    (:func:`fp32_matmul`), and the backward sums the chunks' products in
+    lane order, so that two runs give bitwise-equal gradients.  Each output
+    column sums one 1.0 x value and zeros, so the values equal the gather's
+    bitwise, but for the sign of a zero, while the table is finite: 0 x inf
+    is NaN, so one non-finite entry would poison every lane, not only the
+    lanes that pick it (the tables are finite; the tests check it, the hot
+    path does not)."""
+
+    @staticmethod
+    def forward(ctx, mat, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_cols = mat.shape[1]
+        out = mat.new_empty((mat.shape[0], idx.numel()))
+        with fp32_matmul():
+            for lanes, oh in _onehots(idx, mat.shape[1]):
+                out[:, lanes] = mat @ oh
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        grad = ct.new_zeros((ct.shape[0], ctx.n_cols))
+        with fp32_matmul():
+            for lanes, oh in _onehots(idx, ctx.n_cols):
+                grad += ct[:, lanes] @ oh.T
+        return grad, None
+
+
+def onehot_fetch(mat, idx):
+    """``mat (W, T)`` fetched at the integer ``idx`` (any shape) by a
+    one-hot product (:class:`_OneHotFetch`): (W, *idx.shape)."""
+    flat = idx.reshape(-1).long()
+    return _OneHotFetch.apply(mat, flat).reshape(mat.shape[0], *idx.shape)
+
+
+def _gather_fetch(mat, tid):
+    """``mat (W, T)`` fetched at ``tid`` (B0, 128) by indexing the table's
+    rows, (W, B0, 128): the backward is an index-put with accumulation."""
+    return mat.T[tid.long()].permute(2, 0, 1)
+
+
+def _bwd_fetch(mat, tid):
+    """``mat (W, T)`` fetched at ``tid`` (B0, 128) -> (W, B0, 128) by the
+    JAX package's rule (``intersect_pallas.py:464``): the one-hot product
+    for T <= BWD_ONEHOT_MAX_T, the gather above, either forced by
+    ``CHIAROSCURO_BWD_ONEHOT``."""
+    use_onehot = _BWD_ONEHOT if _BWD_ONEHOT is not None else \
+        mat.shape[1] <= BWD_ONEHOT_MAX_T
+    return onehot_fetch(mat, tid) if use_onehot else _gather_fetch(mat, tid)
+
+
+def _recompute_hit(o3, d3, tri_rows, attrs, tid, fetch=_bwd_fetch):
     """t, u, v and the attribute column of the triangle ``tid`` for each
     planar ray, in ``_mt_core``'s operand order: what the forward computed
     for a hit, as differentiable torch ops (``intersect_pallas.py:485-495``).
-    tri_rows (T, 9) and attrs (T, ATTR_K) are in original triangle order."""
-    idx = tid.long()
-    tri = tri_rows[idx].permute(2, 0, 1)                    # (9, B0, 128)
+    tri_rows (T, 9) and attrs (T, ATTR_K) are in original triangle order;
+    ``fetch(mat (W, T), tid) -> (W, B0, 128)`` fetches their rows
+    (:func:`_bwd_fetch`, or :func:`_gather_fetch` on the cluster path, as
+    ``cluster_pallas.py:1180`` gathers)."""
+    tri = fetch(tri_rows.T, tid)                            # (9, B0, 128)
     _, t, u, v = _mt_core(
         (o3[0], o3[1], o3[2]), (d3[0], d3[1], d3[2]),
         (tri[0], tri[1], tri[2]), (tri[3], tri[4], tri[5]),
         (tri[6], tri[7], tri[8]),
     )
-    return t, u, v, attrs[idx].permute(2, 0, 1)             # (ATTR_K, B0, 128)
+    return t, u, v, fetch(attrs.T, tid)                     # (ATTR_K, B0, 128)
 
 
 class _ClosestHit(torch.autograd.Function):
@@ -484,22 +594,23 @@ class _ClosestHit(torch.autograd.Function):
     detached), and the cotangents of missed rays are masked to zero."""
 
     @staticmethod
-    def forward(ctx, fwd, o3, d3, tri_rows, attrs):
+    def forward(ctx, fwd, fetch, o3, d3, tri_rows, attrs):
         out = fwd(o3.detach(), d3.detach(), tri_rows.detach(), attrs.detach())
         t, tid = out[0], out[1]
         ctx.save_for_backward(o3, d3, tri_rows, attrs, tid, t < BIG)
         ctx.mark_non_differentiable(tid)
+        ctx.fetch = fetch
         return out
 
     @staticmethod
     def backward(ctx, ct_t, _ct_tid, ct_u, ct_v, ct_am):
         o3, d3, tri_rows, attrs, tid, hit = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
+        need = ctx.needs_input_grad[2:]
         h = hit.to(torch.float32)
         with torch.enable_grad():
             xs = [x.detach().requires_grad_(n)
                   for x, n in zip((o3, d3, tri_rows, attrs), need)]
-            outs = _recompute_hit(*xs, tid)
+            outs = _recompute_hit(*xs, tid, fetch=ctx.fetch)
             cts = (ct_t * h, ct_u * h, ct_v * h, ct_am * h[None])
             pairs = [(y, c) for y, c in zip(outs, cts) if y.requires_grad]
             wanted = [x for x, n in zip(xs, need) if n]
@@ -507,19 +618,20 @@ class _ClosestHit(torch.autograd.Function):
                 [y for y, _ in pairs], wanted, [c for _, c in pairs],
                 allow_unused=True,
             ) if pairs else [None] * len(wanted))
-        return (None, *(next(grads) if n else None for n in need))
+        return (None, None, *(next(grads) if n else None for n in need))
 
 
-def closest_hit(fwd, o3, d3, tri_rows, attrs):
+def closest_hit(fwd, o3, d3, tri_rows, attrs, fetch=_bwd_fetch):
     """``fwd(o3, d3, tri_rows, attrs) -> (t, id, u, v, attrs_out)``, made
     differentiable with respect to o3, d3, tri_rows and attrs where any of
     them requires grad.  ``fwd`` runs on detached inputs (a kernel launch
     or its plain version) and must take the original-order (T, 9) rows and
-    (T, ATTR_K) table whose rows its ids index."""
+    (T, ATTR_K) table whose rows its ids index; the backward fetches the
+    winners' rows with ``fetch`` (:func:`_recompute_hit`)."""
     if torch.is_grad_enabled() and any(
         x.requires_grad for x in (o3, d3, tri_rows, attrs)
     ):
-        return _ClosestHit.apply(fwd, o3, d3, tri_rows, attrs)
+        return _ClosestHit.apply(fwd, fetch, o3, d3, tri_rows, attrs)
     return fwd(o3, d3, tri_rows, attrs)
 
 

@@ -57,6 +57,7 @@ import torch
 
 from chiaroscuro_tpu_torch.accel.bvh import check_no_vertex_grad
 from chiaroscuro_tpu_torch.geometry import planar as P
+from chiaroscuro_tpu_torch.ops.intersect_cuda import onehot_fetch
 from chiaroscuro_tpu_torch.sampling import prng
 from chiaroscuro_tpu_torch.sampling.samplers import (
     M_1_PI,
@@ -76,6 +77,10 @@ EPS_OFFSET = float(np.float32(1.0e-3))  # rayTracer.cpp:104,130
 # Bounce-compaction segment width in lanes: live lanes pack to the front of
 # each segment between bounces (the JAX package's value, tuned on the TPU).
 COMPACT_SEG_LANES = 4096
+
+# Up to this many lights the light row is fetched by a one-hot product
+# (ops/intersect_cuda.onehot_fetch), above by a gather (integrator.py:659).
+ONEHOT_MAX_LIGHTS = 512
 
 # Per-axis |direction|-share bits in the spatial bounce-sort key: 2 -> 4x4
 # angular bins inside each octant (the JAX package's measured winner on the
@@ -521,9 +526,13 @@ def trace_paths_planar(
                 n_lights - 1,
             ).long()                                        # (B0, 128)
             ltid = scene.light_ids[li]
-            # Per-light table fetched by index (value-exact; the TPU used a
-            # one-hot matmul).
-            lrow = light_table[:, li]                       # (16, B0, 128)
+            # The light row by the JAX package's rule (integrator.py:
+            # 655-664): a one-hot product up to ONEHOT_MAX_LIGHTS lights, whose
+            # backward is a product too, a gather above.
+            if n_lights <= ONEHOT_MAX_LIGHTS:
+                lrow = onehot_fetch(light_table, li)        # (16, B0, 128)
+            else:
+                lrow = light_table[:, li]
             lv0 = lrow[0:3]
             lv1 = lrow[3:6]
             lv2 = lrow[6:9]

@@ -8,7 +8,8 @@ raises, exits non-zero and prints no result line.
 
 1. Device and build: the card's name and power limit (nvidia-smi), torch's
    device name and count.  The CUDA sources (``csrc/intersect_dense.cu``
-   K1/K2, ``csrc/cull_rows.cu`` K3, ``csrc/intersect_cluster.cu`` K4-K7,
+   K1/K2, ``csrc/cull_rows.cu`` K3, ``csrc/cull_beam.cu`` K3b (the beam
+   cull), ``csrc/intersect_cluster.cu`` K4-K7,
    ``csrc/cull_rowhit.cu`` X1, ``csrc/dma_min.cu`` X2, ``csrc/bvh_traverse.cu``
    B1/B2, and the host's ``csrc/bvh_builder.cpp`` by g++) build in parallel,
    one compiler each; build seconds, registers, shared memory and spills are
@@ -44,6 +45,14 @@ raises, exits non-zero and prints no result line.
    exactly equal to its plain version and, sliced to K, to K3's hit mask;
    timed beside K3's sweep and the whole K3 cull on the same rays.  K3's
    sweep is also timed on 1 to 4 waves of resident blocks' worth of rows.
+   Then K3b, the beam cull, on the primary, bounce and shadow wavefronts
+   (``beam_checks``): count and keys bitwise equal to its plain sweep, its
+   lists to the plain lists, every box K3 hits among its hits (the boxes
+   whose beam entry lies above K3's counted); the trips of both lists; the
+   route's visit kernel on both, every lane's answer bitwise equal, its
+   per-warp visits on the beam lists equal to the replay of the exit rule
+   on ROW_SAMPLE seeded rows and 32 seeded overflow rows; K3b's sweep and whole cull timed beside K3's with its
+   bound and plain sweep, and the visits on both lists.
 2c. The same at Sponza scale (``synthetic:atrium:262144``, 261,396
    triangles, K = 2,043): the same four wavefronts of its 1280x720 frame.
    The same checks on its route, K4/K5; then on every row of
@@ -64,6 +73,9 @@ raises, exits non-zero and prints no result line.
    bounce wavefront, where the 3M frame spends most of its time, is
    counted (trip, overflow rows, visits a warp) and K6 timed on it
    BOUNCE_3M_TURNS times with the spread, not held to the plain version.
+   K3b as in 2b on the primary, bounce and shadow wavefronts, the beam
+   visit counts replayed on BIG3M_SAMPLE seeded rows that fit their list
+   (an overflow row's replay would sweep up to all 23k clusters).
 3. Cornell render: the CLI's batch render of ``scenes/cornell.rtc`` at its
    768x768 and k 6, at RENDER_SPP samples, into an EXR in a temporary
    directory that is read back; finite, non-trivial, one K1 and one K2
@@ -83,14 +95,18 @@ raises, exits non-zero and prints no result line.
    uncompacted one.  Each atrium CLI render is followed by its set-up
    seconds apart from its render, cold and warm ms per frame, useful Mray/s
    and peak device memory (with what was already held when it began: each
-   earlier phase lets its scenes go first), and is then let go.
+   earlier phase lets its scenes go first), and is then let go.  The 481k
+   frame is rendered again through the CLI with ``CHIAROSCURO_BEAM_CULL=1``
+   (K3b in place of K3: 2 K3b launches a bounce): pixels bitwise equal to
+   the exact-cull frame's, warm ms beside it, profiled.
 3c. Mid-size renders through ``intersector auto``: ``synthetic:atrium:262144``
    at 1280x720, 1 spp, k 3 (route ``resident``: 6 K3, 3 K4, 3 K5, no K6/K7
    and no dense launch; compaction on) and ``synthetic:atrium:19000`` at
    1024x1024, 1 spp, k 3 (the JAX bench's nanosuit shape; K = 148, no
    compaction), each with a torch.profiler breakdown of one warm frame.
 3d. ``synthetic:atrium:3000000`` at 1280x720, 1 spp, k 3 through
-   ``intersector auto`` (route ``stream``: 6 K3, 3 K6, 3 K7), as 3c.
+   ``intersector auto`` (route ``stream``: 6 K3, 3 K6, 3 K7), as 3c; then
+   with ``CHIAROSCURO_BEAM_CULL=1`` as in 3b (6 K3b, 3 K6, 3 K7).
 3e. ``synthetic:atrium:4000`` at 1280x720, 1 spp, k 3 through
    ``intersector auto``: the dense pair, 3 K1 and 3 K2 launches and no
    other, reported and profiled as 3c; then the same scene at 160x90,
@@ -163,8 +179,15 @@ raises, exits non-zero and prints no result line.
    1280x720 x 1 spp x k 3 with ``checkpoint=True`` — finite, the lights'
    ke gradients non-zero; (iii) Cornell 512x512 x 16 spp x k 3 fwd+bwd
    through K1 (the JAX bench's 500 spp cut to 16).  ms and peak device
-   memory are printed, and torch.profiler breakdowns of one 262k fwd+bwd and
-   of a 2-spp Cornell 512x512 fwd+bwd.
+   memory are printed, and a torch.profiler breakdown of one 262k fwd+bwd;
+   (iv) the backward's row fetch: Cornell 512x512 x 2 spp x k 3 fwd+bwd
+   (checkpointed) w.r.t. (kd, ke) and w.r.t. (kd, ke) and the vertices,
+   profiled in turns with the one-hot product (the default) and the gather
+   forced, one-hot, gather, gather, one-hot: busy, idle, "gathers and
+   scatters" and the products' device ms, the one-hot turns' gradients
+   bitwise equal; the vertex gradients card vs CPU at 96x96 x 2 spp x k
+   3; the 16-spp fwd+bwd with ``spp_batch=16`` (a one-hot over its 4M lanes
+   would exceed the budget, so it runs in chunks): ms and peak memory.
 6. The tool path: ``tools/cull_experiments.main()`` (the cull shootout on
    ``synthetic:atrium:19000`` at 1024x1024: K3, the dot-reduce and
    scan-free formulations and X1, their masks and lists checked against
@@ -199,19 +222,22 @@ raises, exits non-zero and prints no result line.
    The ranks' launches in (a) and (b) count on the main path.
 
 The line before the last is a JSON object of the kernels: for each, the
-launches of its path (K1-K7, B1/B2: the main-path renders of phases 3-3g, counts
+launches of its path (K1-K7, K3b, B1/B2: the main-path renders of phases 3-3g,
+counts
 set to 0 before each run and read after it, summed over the runs; X1/X2:
 phase 6), its
 largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
 CUDA events over a loop of calls, their kernel time by torch.profiler
 printed beside it in phase 4; X2 and its library call: kernel time by
 torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
-ones', B1/B2 on the 481k primary and shadow wavefronts' sample) and its
+ones', K3b's sweep on the 481k primary wavefront, B1/B2 on the 481k
+primary and shadow wavefronts' sample) and its
 plain version's on the stated inputs, and the bound: the
 larger of the FP32 operations those inputs need (K1/K2: the tests the
 warp-uniform reject leaves; visits counted by the replay of the per-warp
-exit rule; occlusion lanes tested only up to their first blocker; B1/B2:
-BOX_OPS a step and MT_OPS a leaf test of the plain walk's) over the
+exit rule; occlusion lanes tested only up to their first blocker; K3b:
+BEAM_AXIS_OPS a definite axis of a row and BEAM_TAIL_OPS a (row, box);
+B1/B2: BOX_OPS a step and MT_OPS a leaf test of the plain walk's) over the
 card's unfused FP32 rate and the bytes read and written once over its
 memory rate.
 
@@ -279,6 +305,12 @@ CULL_OPS = 21
 X1_OPS = 26
 # Boxes per chunk of K3's loop (csrc/cull_rows.cu kChunk), fully unrolled.
 CULL_CHUNK = 64
+# FP32 operations of K3b (csrc/cull_beam.cu) per (row, box): a definite
+# axis 4 sub, 8 mul and the 16 min/max of the two planes' intervals and
+# their combination; then the two hit compares, the entry's max and + 0.0
+# and the select (one more compare with tmax).
+BEAM_AXIS_OPS = 28
+BEAM_TAIL_OPS = 5
 
 # us of the Triton K3 that csrc/cull_rows.cu replaced, (sweep, whole cull),
 # on the same seeded wavefronts, NVIDIA H100 80GB HBM3 at 700.00 W; None
@@ -305,6 +337,7 @@ REPLACED_US = {
 KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
               "closest_resident": "K4", "any_resident": "K5",
               "closest_cluster": "K6", "any_cluster": "K7", "cull_rowhit": "X1",
+              "cull_beam": "K3b",
               "dma_min": "X2", "bvh_closest": "B1", "bvh_any": "B2"}
 
 
@@ -937,6 +970,140 @@ def bounce_3m(cc, card, o3, d3, bmin, bmax, packed, attrs):
     return mean
 
 
+def beam_ops(d3, K, with_tmax):
+    """FP32 operations K3b's sweep needs on these rays: per (row, box)
+    BEAM_AXIS_OPS a definite axis (the row's directions all of one sign)
+    and BEAM_TAIL_OPS (one more with tmax)."""
+    n_def = sum(((d3[a].amin(1) > 0) | (d3[a].amax(1) < 0)).long() for a in range(3))
+    return int((BEAM_AXIS_OPS * n_def + BEAM_TAIL_OPS + with_tmax).sum()) * K
+
+
+def beam_checks(cc, card, name, waves, bmin, bmax, packed, attrs, route, rng,
+                replay_sample=None, plain_times=False, visit_reps=3):
+    """K3b on each wavefront ({name: (o3, d3, tmax, excl)}), beside K3 on
+    the same rays: its count and keys bitwise equal to the plain sweep, its
+    lists to the plain lists; every box K3 finds among its hits (and the
+    boxes whose beam entry lies above K3's entry counted: the rounding
+    hazard of a row bound); trip mean and p50 of both lists; the route's
+    visit kernel on both lists, its answers bitwise equal (any lane that
+    differs fails), its per-warp visits equal to the replay of the exit
+    rule on every row (where ``replay_sample = (n, n_over)`` is given, on n
+    seeded rows that fit their beam list and n_over seeded rows that
+    overflowed it: an overflow row's replay sweeps up to every cluster, a
+    Python step a visit) and timed on both in
+    turns (exact, beam, beam, exact; ``visit_reps`` launches a turn);
+    K3b's sweep and whole cull timed beside K3's, with its bound (and,
+    where ``plain_times``, its plain sweep's time).
+    Returns {wavefront: record}, the largest |kernel - plain| of the keys
+    and the lanes whose beam answer differed (zero, or the check failed)."""
+    out, err = {}, 0.0
+    K = bmin.shape[0]
+    Le = min(cc.DEFAULT_LMAX, K)
+    for wname, (o3, d3, tmax, excl) in waves.items():
+        t_wave = time.perf_counter()
+        nB0 = o3.shape[1]
+        count, key = cc.cull_beam_sweep(o3, d3, bmin, bmax, tmax)
+        p_count, p_key = cc.cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
+        b_lists = cc.cull_beam(o3, d3, bmin, bmax, Le, tmax=tmax)
+        p_lists = cc._order_hits(p_count, p_key, Le)
+        sync()
+        if not (torch.equal(count, p_count) and torch.equal(bits(key), bits(p_key))):
+            raise AssertionError(f"{name}/{wname}: K3b differs from its plain sweep")
+        if bool(torch.signbit(key).any()):
+            raise AssertionError(f"{name}/{wname}: a K3b key is -0.0")
+        for field, a, b in zip(("meta", "ids", "nears", "cutoff"), b_lists, p_lists):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"{name}/{wname}: K3b's lists differ from plain in {field}")
+        err = max(err, max_err(key, p_key))
+        del p_count, p_key, p_lists
+        e_count, e_key, e_hit = cc.cull_sweep(o3, d3, bmin, bmax, tmax, hits=True)
+        e_lists = cc._order_hits(e_count, e_key, Le)
+        if not bool(((key < cc.BIG) | ~e_hit).all()):
+            raise AssertionError(f"{name}/{wname}: K3b missed a box K3 hit")
+        above = int((e_hit & (key > e_key)).sum())
+        del e_key, e_hit
+        trips = {c: lists[0][:, 0].float() for c, lists in (("exact", e_lists), ("beam", b_lists))}
+        over = {c: int(lists[0][:, 1].sum()) for c, lists in (("exact", e_lists), ("beam", b_lists))}
+        closest = tmax is None
+        k = cc.ROUTES[route][0 if closest else 1]
+        visits = {c: torch.zeros((nB0, cc.WARPS), dtype=torch.int32, device=o3.device)
+                  for c in ("exact", "beam")}
+        res = {c: run_visit(cc, k, lists, o3, d3, tmax, excl, packed, attrs, visits=visits[c])
+               for c, lists in (("exact", e_lists), ("beam", b_lists))}
+        sync()
+        pairs = zip(res["exact"], res["beam"]) if closest else [(res["exact"], res["beam"])]
+        lanes = torch.zeros((nB0, 128), dtype=torch.bool, device=o3.device)
+        for a, b in pairs:
+            lanes |= (bits(a) != bits(b)).reshape(-1, nB0, 128).any(0)
+        differ = int(lanes.sum())
+        if differ:
+            raise AssertionError(f"{name}/{wname}: {differ} lanes answer differently on K3b's "
+                                 "lists than on K3's")
+        if replay_sample is None:
+            rows = torch.arange(nB0, device=o3.device)
+        else:
+            rows = []
+            for n, overflowed in zip(replay_sample, (0, 1)):
+                of = torch.nonzero(b_lists[0][:, 1] == overflowed).reshape(-1)
+                pick = rng.choice(of.numel(), min(n, of.numel()), replace=False)
+                rows.append(of[torch.from_numpy(pick).to(o3.device)])
+            rows = torch.cat(rows)
+        sub = tuple(x[rows].contiguous() for x in b_lists)
+        sub_out = tuple(take_rows(x, rows) for x in res["beam"]) if closest else res["beam"][rows]
+        replay_visits(cc, sub, o3[:, rows].contiguous(), d3[:, rows].contiguous(),
+                      None if closest else tmax[rows].contiguous(),
+                      None if closest else excl[rows].contiguous(), packed,
+                      {k: visits["beam"][rows]}, sub_out)
+        k3 = {"K3 cull": lambda: cc.cull(o3, d3, bmin, bmax, Le, tmax=tmax),
+              "K3 sweep": lambda: cc.cull_sweep(o3, d3, bmin, bmax, tmax),
+              "K3b cull": lambda: cc.cull_beam(o3, d3, bmin, bmax, Le, tmax=tmax),
+              "K3b sweep": lambda: cc.cull_beam_sweep(o3, d3, bmin, bmax, tmax)}
+        reps = {n: 10 for n in k3}
+        if plain_times:
+            k3["K3b plain sweep"] = lambda: cc.cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
+            reps["K3b plain sweep"] = 2
+        t_cull = time_turns(k3, reps)
+        # The visits in turns, warm from the comparison above.
+        turns = {"exact": [], "beam": []}
+        for c in ("exact", "beam", "beam", "exact"):
+            lists = e_lists if c == "exact" else b_lists
+            turns[c].append(time_us(lambda: run_visit(cc, k, lists, o3, d3, tmax, excl, packed,
+                                                      attrs), visit_reps))
+        t_visit = {c: (sum(t) / 2, tuple(t)) for c, t in turns.items()}
+        reads = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + K * 24
+        rec = dict(
+            rows=nB0, t_cull=t_cull, t_visit=t_visit, above=above, differ=differ, over=over,
+            trips={c: (float(t.mean()), float(t.median())) for c, t in trips.items()},
+            visits={c: float(v.float().mean()) for c, v in visits.items()},
+            sweep_bound=bound(beam_ops(d3, K, tmax is not None), reads + nB0 * (4 + 4 * K)),
+            hits=int(count.sum()), exact_hits=int(e_count.sum()), replayed=rows.numel())
+        out[wname] = rec
+        fmt = lambda n: f"{t_cull[n][0]:.1f} us (turns {t_cull[n][1][0]:.1f}, {t_cull[n][1][1]:.1f})"
+        b_ms, b_by = rec["sweep_bound"]
+        print(f"[beam] {card}: {name}/{wname} B0={nB0} K={K}: K3b equals its plain sweep and "
+              f"lists; hit (row, box) pairs K3b {rec['hits']} against K3 {rec['exact_hits']}; "
+              f"beam entries above K3's {above}; trip mean/p50 exact "
+              f"{rec['trips']['exact'][0]:.1f}/{rec['trips']['exact'][1]:.0f}, beam "
+              f"{rec['trips']['beam'][0]:.1f}/{rec['trips']['beam'][1]:.0f}; overflow rows exact "
+              f"{over['exact']}, beam {over['beam']}; {KERNEL_IDS[k]} answers on the beam lists "
+              f"bitwise those on the exact lists (lanes differing: {differ}); warp visits mean "
+              f"exact {rec['visits']['exact']:.2f}, beam {rec['visits']['beam']:.2f} (beam "
+              f"counts equal the replay on {rows.numel()} rows"
+              + (")" if replay_sample is None else
+                 f", {int(b_lists[0][rows, 1].sum())} of them overflow rows)")
+              + f"; {time.perf_counter() - t_wave:.1f} s")
+        print(f"[timing] {card}: {name}/{wname}: K3b sweep {fmt('K3b sweep')}, bound "
+              f"{b_ms * 1e3:.1f} us ({b_by}); K3b whole cull {fmt('K3b cull')}; K3 sweep "
+              f"{fmt('K3 sweep')}, K3 whole cull {fmt('K3 cull')}"
+              + (f"; K3b plain sweep {fmt('K3b plain sweep')}" if plain_times else "")
+              + f"; {KERNEL_IDS[k]} on all rows on the exact lists {t_visit['exact'][0]:.1f} us "
+              f"(turns {t_visit['exact'][1][0]:.1f}, {t_visit['exact'][1][1]:.1f}), on the beam "
+              f"lists {t_visit['beam'][0]:.1f} us (turns {t_visit['beam'][1][0]:.1f}, "
+              f"{t_visit['beam'][1][1]:.1f})")
+        del e_lists, b_lists, res, visits, key, count, e_count
+    return out, err
+
+
 def k3_waves(cc, card, o3, d3, bmin, bmax):
     """K3's sweep on the first n rows of (o3, d3) for n = 1 to 4 waves of
     resident blocks (16 a multiprocessor: the kernel's launch bounds) and
@@ -1044,11 +1211,12 @@ def print_cluster_timings(card, scene_name, ctimings):
               f"{bounds_text('all')}{old}{share}")
 
 
-def route_launches(cc, route):
+def route_launches(cc, route, cull="cull"):
     """The launches of one 1-spp, k 3 frame on the cluster path: two culls
-    and one visit of each kind a bounce, on the route's pair."""
+    (K3, or with ``cull="cull_beam"`` K3b) and one visit of each kind a
+    bounce, on the route's pair."""
     closest, occlusion = cc.ROUTES[route]
-    return {"cull": 2 * ATRIUM_K, closest: ATRIUM_K, occlusion: ATRIUM_K}
+    return {cull: 2 * ATRIUM_K, closest: ATRIUM_K, occlusion: ATRIUM_K}
 
 
 def route_of(cc, K, M):
@@ -1126,10 +1294,49 @@ def check_atrium_render(renderer, exported, launches, want, what, res):
         raise AssertionError(f"the exported {what} EXR does not read back as the render")
 
 
+def beam_frame(cli, cc, repo, counts, card, tokens, out_name, what, want_pixels, exact_warm,
+               turns, profiled=True):
+    """The CLI render of ``tokens`` with ``CHIAROSCURO_BEAM_CULL=1`` (the
+    user's switch to the beam cull K3b, read when the pair is made): two
+    K3b launches a bounce in place of K3's and the route's visits, pixels
+    bitwise equal to ``want_pixels`` (the exact-cull frame's), cold ms and
+    warm ms (median of ``turns`` frames) beside ``exact_warm``, and a
+    profiled frame where ``profiled``.  Returns the run's launches."""
+    os.environ["CHIAROSCURO_BEAM_CULL"] = "1"
+    try:
+        renderer, launches, total, mem, exported = cli_render(cli, repo, counts, tokens,
+                                                              out_name)
+    finally:
+        del os.environ["CHIAROSCURO_BEAM_CULL"]
+    route = renderer.intersectors[0].route
+    check_atrium_render(renderer, exported, launches,
+                        route_launches(cc, route, cull="cull_beam"), f"{what}, beam cull",
+                        ATRIUM_RES)
+    differ = int((renderer.pixels.view(np.uint32) != want_pixels.view(np.uint32))
+                 .any(axis=-1).sum())
+    if differ:
+        raise AssertionError(f"{what}: {differ} pixels of the beam-culled frame differ from "
+                             "the exact-culled frame's")
+    cold = renderer.last_stats["seconds"] * 1e3
+    print(f"[timing] {card}: {what}, beam cull (CLI, cold): render {cold:.1f} ms/frame, CLI "
+          f"total {total:.2f} s; {mem_text(mem)}")
+    warm = frame_ms(renderer, turns)
+    print(f"[beam] {card}: {what} through K3b (CHIAROSCURO_BEAM_CULL=1, route {route}): "
+          f"pixels bitwise equal to the exact-cull frame's; warm {warm[0]:.1f} ms (frames "
+          + ", ".join(f"{t:.1f}" for t in warm[1]) + f") against the exact cull's "
+          f"{exact_warm:.1f} ms: {warm[0] / exact_warm:.3f}x")
+    if profiled:
+        profile_frame(renderer, card, f"{what}, beam cull")
+    del renderer, exported
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile(fn, label, card):
     """torch.profiler over one call of ``fn``: device time by layer (CUDA
     kernel names), busy share of the profiled wall time, and the kernels'
-    per-launch times."""
+    per-launch times.  Returns {"wall_ms", "busy_ms", "layers": {layer:
+    ms}}, or None where the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -1150,6 +1357,8 @@ def profile(fn, label, card):
         n_kernels += e.count
         if "cull_rows_kernel" in name:
             layer = "K3 cull_rows"
+        elif "cull_beam_kernel" in name:
+            layer = "K3b cull_beam"
         elif "closest_visits_kernel" in name:
             layer = "K4/K6 closest_visits"
         elif "any_visits_kernel" in name:
@@ -1164,6 +1373,8 @@ def profile(fn, label, card):
             layer = "sorts"
         elif "index" in name.lower() or "gather" in name.lower() or "scatter" in name.lower():
             layer = "gathers and scatters"
+        elif "gemm" in name.lower() or "xmma" in name.lower() or "cutlass" in name.lower():
+            layer = "matrix products (one-hot fetches)"
         else:
             layer = "integrator (elementwise, Threefry, reductions, copies)"
         layers[layer] = layers.get(layer, 0.0) + us
@@ -1173,7 +1384,7 @@ def profile(fn, label, card):
     busy = sum(layers.values()) / 1e3
     if busy <= 0:
         print(f"[profile] {card}: {label}: torch.profiler recorded no device time: not measured")
-        return
+        return None
     print(f"[profile] {card}: {label}: {wall_ms:.1f} ms profiled wall, {busy:.1f} ms device "
           f"busy (idle {100 * (1 - busy / wall_ms):.1f}%), {n_kernels} device kernels")
     for layer, us in sorted(layers.items(), key=lambda kv: -kv[1]):
@@ -1181,6 +1392,7 @@ def profile(fn, label, card):
         if layer in per_launch:
             extra = f" ({per_launch[layer][1]} launches, {per_launch[layer][0] / 1e3:.2f} ms each)"
         print(f"[profile]   {layer}: {us / 1e3:.2f} ms ({100 * us / 1e3 / busy:.1f}% of busy){extra}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "layers": {k: us / 1e3 for k, us in layers.items()}}
 
 
 def sass_mix(path, kernel, per, what="box"):
@@ -1495,10 +1707,11 @@ def frame_ms(renderer, turns=3):
 # ---------------------------------------------------------------------------
 
 
-def grad_run(scene, cam, res, spp, depth, fields, pair_of, checkpoint=False, counts=()):
+def grad_run(scene, cam, res, spp, depth, fields, pair_of, checkpoint=False, counts=(),
+             spp_batch=1):
     """Value and gradients of the mean image w.r.t. ``fields``, the
     intersectors rebuilt on the parameter-substituted scene by
-    ``pair_of(scene)``.  Returns (loss, {field: grad on the CPU}, launches,
+    ``pair_of(scene)`` (``spp_batch`` samples a wavefront).  Returns (loss, {field: grad on the CPU}, launches,
     seconds, (peak device memory, device memory held when the run began) or
     (0, 0))."""
     from chiaroscuro_tpu_torch.render.renderer import render_samples
@@ -1520,7 +1733,7 @@ def grad_run(scene, cam, res, spp, depth, fields, pair_of, checkpoint=False, cou
     cf, af = pair_of(s)
     img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], xres, yres,
                          xs.reshape(-1), ys.reshape(-1), 0, spp, 0, depth, (0.0, 0.0, 0.0),
-                         cf, af, checkpoint=checkpoint)
+                         cf, af, checkpoint=checkpoint, spp_batch=spp_batch)
     loss = img.mean()
     loss.backward()
     grads = {k: v.grad.cpu() for k, v in params.items()}
@@ -1528,6 +1741,62 @@ def grad_run(scene, cam, res, spp, depth, fields, pair_of, checkpoint=False, cou
     launches = {k: v for c in counts for k, v in c.items() if v}
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     return float(loss.detach()), grads, launches, seconds, (peak, held)
+
+
+def fetch_ab(ic, card, scene, pair_of, counts):
+    """Phase 5(iv): Cornell 512x512 x 2 spp x k 3 fwd+bwd (checkpointed)
+    w.r.t. (kd, ke) and w.r.t. (kd, ke) and the vertices, each profiled in
+    turns one-hot, gather, gather, one-hot: the backward's row fetch by the
+    JAX package's rule (the product: 36 triangles, 2 lights) and with the
+    gather forced (``ic._BWD_ONEHOT = False``, what
+    ``CHIAROSCURO_BWD_ONEHOT=0`` sets at import; the light row stays a
+    product).  Prints each form's mean wall, busy and idle and its
+    "gathers and scatters" and products' device ms; the one-hot turns'
+    gradients must be bitwise equal.  Returns {(fields, form): summary}."""
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA
+
+    summary = {}
+    for label, fields in (("(kd, ke)", ("kd", "ke")),
+                          ("(kd, ke, vertices)", ("kd", "ke", "tri_v0", "tri_v1", "tri_v2"))):
+        runs = {"one-hot": [], "gather": []}
+        for form in ("one-hot", "gather", "gather", "one-hot"):
+            ic._BWD_ONEHOT = None if form == "one-hot" else False
+            held = []
+            try:
+                prof = profile(lambda: held.append(grad_run(
+                    scene, CORNELL_CAMERA, (512, 512), 2, 3, fields, pair_of,
+                    checkpoint=True, counts=counts)),
+                    f"cornell 512x512 x 2 spp x k3 fwd+bwd w.r.t. {label}, checkpoint=True, "
+                    f"backward fetch {form}", card)
+            finally:
+                ic._BWD_ONEHOT = None
+            runs[form].append((prof, held[0]))
+        a, b = (g[1][1] for g in runs["one-hot"])
+        same = all(torch.equal(bits(a[k]), bits(b[k])) for k in fields)
+        g_same = all(torch.equal(bits(x[k]), bits(y[k])) for k in fields
+                     for x, y in [tuple(g[1][1] for g in runs["gather"])])
+        for form, rs in runs.items():
+            profs = [p for p, _ in rs if p is not None]
+            if not profs:
+                print(f"[fetch] {card}: {label} {form}: device time not measured")
+                continue
+            mean = lambda f: sum(f(p) for p in profs) / len(profs)
+            busy, wall = mean(lambda p: p["busy_ms"]), mean(lambda p: p["wall_ms"])
+            gat = mean(lambda p: p["layers"].get("gathers and scatters", 0.0))
+            mm = mean(lambda p: p["layers"].get("matrix products (one-hot fetches)", 0.0))
+            summary[(label, form)] = dict(wall_ms=wall, busy_ms=busy, gathers_ms=gat,
+                                          products_ms=mm, seconds=[r[1][3] for r in rs])
+            print(f"[fetch] {card}: cornell 512x512 x 2 spp x k3 fwd+bwd w.r.t. {label}, "
+                  f"backward fetch {form}, mean of {len(profs)} profiled turns: wall "
+                  f"{wall:.1f} ms, busy {busy:.1f} ms (idle {100 * (1 - busy / wall):.1f}%), "
+                  f"gathers and scatters {gat:.2f} ms ({100 * gat / busy:.1f}% of busy), "
+                  f"matrix products {mm:.2f} ms; turns' wall s "
+                  + ", ".join(f"{r[1][3]:.3f}" for r in rs))
+        print(f"[fetch] {card}: {label}: the two one-hot turns' gradients bitwise equal: "
+              f"{same}; the two gather turns': {g_same}")
+        if not same:
+            raise AssertionError(f"{label}: two one-hot fwd+bwd runs' gradients differ")
+    return summary
 
 
 def compare_grads(what, card, cpu, rel=1e-3):
@@ -1640,8 +1909,8 @@ def main() -> int:
     print(f"[device] nvidia-smi: {card}")
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     t0 = time.perf_counter()
-    builders = (ic.build, cc.build_cull, cc.build, xc.build, dm.build, bc.build,
-                lambda: cuda_build.build_host_library("bvh_builder"))
+    builders = (ic.build, cc.build_cull, cc.build_cull_beam, cc.build, xc.build, dm.build,
+                bc.build, lambda: cuda_build.build_host_library("bvh_builder"))
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = [f.result()[1] for f in [pool.submit(b) for b in builders]]
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, and g++ "
@@ -1773,6 +2042,11 @@ def main() -> int:
                 xc, cc, "atrium 481k primary, tmax = the closest hit's t",
                 *waves["primary"][:2], primary_t, bmin, bmax, boxes),
         }
+        lap("phase 2b, K3 by waves and X1")
+        beam_big, beam_err = beam_checks(
+            cc, card, "atrium 481k", {w: waves[w][:4] for w in ("primary", "bounce", "shadow")},
+            bmin, bmax, packed, attrs, "stream", rng, replay_sample=(ROW_SAMPLE, 32),
+            plain_times=True)
     if n_over == 0:
         raise AssertionError("no overflow row was compared: phase 2 of K6/K7 went unchecked")
     del big, packed, attrs, waves, big_inputs, boxes, primary_t
@@ -1781,7 +2055,7 @@ def main() -> int:
           "equal to the replay of their exit rule; X1 exact against its plain version and "
           "K3's hit mask")
 
-    lap("phase 2b, K3 by waves and X1")
+    lap("phase 2b, K3b beside K3")
     # --- phase 2c: resident cluster kernels (262k) -----------------------------
     t0 = time.perf_counter()
     mid = build_scene_tensors(atrium(MID_TRIS), device=dev)
@@ -1891,6 +2165,12 @@ def main() -> int:
                                 "stream", plain_cull=False)
         k6_bounce_us = bounce_3m(cc, card, *h_bounce[:2], h_bmin, h_bmax, h_packed, h_attrs)
         lap("phase 2d, 3M timings")
+        beam_huge, huge_beam_err = beam_checks(
+            cc, card, f"atrium:{BIG3M_TRIS}", {**h_waves, "bounce": h_bounce[:4]}, h_bmin,
+            h_bmax, h_packed, h_attrs, "stream", rng, replay_sample=(BIG3M_SAMPLE, 0),
+            visit_reps=1)
+        beam_err = max(beam_err, huge_beam_err)
+        lap("phase 2d, K3b beside K3")
         # Phase 3g(g): B1/B2 on the same wavefronts, while they are held.
         h_bvh = bvh_mod.build_bvh(huge)
         if h_bvh.builder != "native":
@@ -1963,11 +2243,10 @@ def main() -> int:
 
     lap("phase 3")
     # --- phase 3b: 481k atrium render, atrium(2_200) card vs CPU ---------------
+    a_tokens = ["input", "synthetic:atrium", "intersector", "auto", "xres", str(ATRIUM_RES[0]),
+                "yres", str(ATRIUM_RES[1]), "samples", "1", "k", str(ATRIUM_K), *cam]
     a_renderer, a_launches, a_total, a_mem, a_exported = cli_render(
-        cli, repo, counts,
-        ["input", "synthetic:atrium", "intersector", "auto", "xres", str(ATRIUM_RES[0]),
-         "yres", str(ATRIUM_RES[1]), "samples", "1", "k", str(ATRIUM_K), *cam],
-        "atrium_1280x720.exr")
+        cli, repo, counts, a_tokens, "atrium_1280x720.exr")
     add_launches(a_launches)
     check_atrium_render(a_renderer, a_exported, a_launches, route_launches(cc, "stream"),
                         "atrium", ATRIUM_RES)
@@ -1979,6 +2258,8 @@ def main() -> int:
     a_warm = frame_ms(a_renderer)
     del a_renderer, a_exported
     torch.cuda.empty_cache()
+    add_launches(beam_frame(cli, cc, repo, counts, card, a_tokens, "atrium_beam.exr",
+                            "atrium 481k 1280x720", a_pixels, a_warm[0], 3))
 
     s_tokens = ["input", "synthetic:atrium:2200", "xres", "160", "yres", "90",
                 "samples", "2", "k", "2", *cam]
@@ -2049,11 +2330,11 @@ def main() -> int:
 
     lap("phase 3c")
     # --- phase 3d: the 3M frame through auto ------------------------------------
+    h_tokens = ["input", f"synthetic:atrium:{BIG3M_TRIS}", "intersector", "auto",
+                "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
+                "k", str(ATRIUM_K), *cam]
     h_renderer, h_launches, h_total, h_mem, h_exported = cli_render(
-        cli, repo, counts,
-        ["input", f"synthetic:atrium:{BIG3M_TRIS}", "intersector", "auto",
-         "xres", str(ATRIUM_RES[0]), "yres", str(ATRIUM_RES[1]), "samples", "1",
-         "k", str(ATRIUM_K), *cam], "atrium_3m.exr")
+        cli, repo, counts, h_tokens, "atrium_3m.exr")
     add_launches(h_launches)
     check_atrium_render(h_renderer, h_exported, h_launches, route_launches(cc, "stream"),
                         f"atrium:{BIG3M_TRIS}", ATRIUM_RES)
@@ -2065,6 +2346,9 @@ def main() -> int:
     profile_frame(h_renderer, card)
     del h_renderer, h_exported
     torch.cuda.empty_cache()
+    add_launches(beam_frame(cli, cc, repo, counts, card, h_tokens, "atrium_3m_beam.exr",
+                            f"atrium:{BIG3M_TRIS} 1280x720", h_pixels, h_warm, 1,
+                            profiled=False))
 
     lap("phase 3d")
     # --- phase 3e: the dense path's largest scene through auto ----------------
@@ -2561,9 +2845,39 @@ def main() -> int:
         if not (all(bool(torch.isfinite(g).all()) for g in grads.values())
                 and float(grads["ke"].abs().sum()) > 0 and g_launches.get("closest")):
             raise AssertionError("Cornell 512x512 gradients are not finite and lit")
-    profile(lambda: grad_run(cornell, CORNELL_CAMERA, (512, 512), 2, 3, ("kd", "ke"),
-                             lambda s: make_intersectors(s, "dense"), checkpoint=True),
-            "cornell 512x512 x 2 spp x k3 fwd+bwd, checkpoint=True", card)
+    # (iv) The backward's fetch: the one-hot product against the gather
+    # forced, in turns; the card against the CPU w.r.t. the vertices too;
+    # spp_batch 16, where one one-hot over the wavefront would exceed the
+    # budget.
+    if ic._BWD_ONEHOT is not None:
+        raise AssertionError("CHIAROSCURO_BWD_ONEHOT is set: phase 5(iv) measures the default")
+    fetch_ab(ic, card, cornell, lambda s: make_intersectors(s, "dense"), counts)
+    v_fields = ("kd", "ke", "tri_v0", "tri_v1", "tri_v2")
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        out[d.type] = grad_run(build_scene_tensors(cornell_box(), device=d), CORNELL_CAMERA,
+                               (96, 96), 2, 3, v_fields,
+                               lambda s: make_intersectors(s, "dense"), checkpoint=True)[:2]
+    compare_grads("cornell 96x96 x 2 spp x k3 w.r.t. (kd, ke, vertices), one-hot fetch",
+                  out["cuda"], out["cpu"])
+    loss16, grads16 = grad_run(cornell, CORNELL_CAMERA, (512, 512), 16, 3, ("kd", "ke"),
+                               lambda s: make_intersectors(s, "dense"), checkpoint=True)[:2]
+    loss, grads, g_launches, seconds, g_mem = grad_run(
+        cornell, CORNELL_CAMERA, (512, 512), 16, 3, ("kd", "ke"),
+        lambda s: make_intersectors(s, "dense"), checkpoint=True, counts=counts, spp_batch=16)
+    rels = {k: float((grads[k].double() - g.double()).abs().sum() / g.double().abs().sum())
+            for k, g in grads16.items()}
+    onehot_bytes = cornell.n_tris * 512 * 512 * 16 * 4
+    print(f"[fetch] {card}: cornell 512x512 x 16 spp x k3 fwd+bwd w.r.t. (kd, ke), "
+          f"checkpoint=True, spp_batch=16: {seconds * 1e3:.1f} ms, {mem_text(g_mem)}; one "
+          f"one-hot over the wavefront would be {onehot_bytes / 2**20:.1f} MiB, the budget "
+          f"{ic.ONEHOT_BUDGET_BYTES / 2**20:.0f} MiB a chunk; loss {loss} against {loss16} "
+          f"at spp_batch=1, gradients' relative L1 " + ", ".join(
+              f"d/d{k} {v}" for k, v in rels.items()) + f"; launches {g_launches}")
+    if not (all(bool(torch.isfinite(g).all()) for g in grads.values())
+            and g_launches.get("closest") in (3, 6)):
+        raise AssertionError("the spp_batch=16 fwd+bwd is not finite or not one K1 a "
+                             "bounce (two with the checkpoint's recompute)")
 
     lap("phase 5")
     # --- phase 6: the tool path (X1 in the cull shootout, X2) -------------------
@@ -2723,6 +3037,7 @@ def main() -> int:
     x2_ms = {n: (x2_t[n][0] if u is None else u) / 1e3 for n, (u, _) in x2_dev.items()}
     ct, at = t_cornell["K1"], t_cornell["K2"]
     cull_t = ctimings[("cull", "primary")]
+    beam_t = beam_big["primary"]
     x1_t = x1_times["481k primary"]
     kernels = [
         entry("closest_dense", "cuda", "chiaroscuro_tpu_torch/csrc/intersect_dense.cu",
@@ -2734,6 +3049,10 @@ def main() -> int:
         entry("cull", "cuda", "chiaroscuro_tpu_torch/csrc/cull_rows.cu",
               "chiaroscuro_tpu/ops/cluster_pallas.py:310", cluster_errs["cull"],
               cull_t["us"] / 1e3, cull_t["plain_us"] / 1e3, cull_t["bound"]),
+        entry("cull_beam", "cuda", "chiaroscuro_tpu_torch/csrc/cull_beam.cu",
+              "chiaroscuro_tpu/ops/cluster_pallas.py:226", beam_err,
+              beam_t["t_cull"]["K3b sweep"][0] / 1e3,
+              beam_t["t_cull"]["K3b plain sweep"][0] / 1e3, beam_t["sweep_bound"]),
         visit_entry("closest_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:485",
                     mtimings[("closest_resident", "primary")]),
         visit_entry("any_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:550",

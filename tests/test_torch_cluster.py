@@ -332,7 +332,7 @@ def test_wrappers_take_plain_versions_on_cpu(atrium_case):
     res = cf.planar_fn(o3, d3)
     af.planar_fn(o3, d3, tmax, excl)
     assert cc.LAUNCHES == before == dict.fromkeys(before, 0)
-    assert set(before) == {"cull", "closest_resident", "any_resident",
+    assert set(before) == {"cull", "cull_beam", "closest_resident", "any_resident",
                            "closest_cluster", "any_cluster"}
     assert res.t.shape == (4, 128) and res.attrs["kd"].shape == (3, 4, 128)
 

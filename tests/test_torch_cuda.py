@@ -10,7 +10,9 @@ K1/K2, K4/K5 and K6/K7 and its gradients against the CPU's,
 ``spp_batch`` against one sample a wavefront, B1/B2 (the threaded-BVH
 walks) against their plain walk, with a BVH render against the CPU's, and
 the tile-sharded frames and gradients of ``parallel/`` on one NCCL rank and
-on two gloo ranks sharing the card.
+on two gloo ranks sharing the card; K3b (the beam cull) against its plain
+sweep and the beam-culled pair against the exact one, and the one-hot
+backward's gradients run to run and under TF32 precision settings.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -222,8 +224,8 @@ def test_cluster_kernels_equal_plain_on_card(lmax, cuda_device):
     occ = cc.any_cluster(*slists, q["o3"], q["d3"], q["tmax"], excl, packed)
     torch.cuda.synchronize()
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
-        "cull": 2, "closest_resident": 0, "any_resident": 0, "closest_cluster": 1,
-        "any_cluster": 1}
+        "cull": 2, "cull_beam": 0, "closest_resident": 0, "any_resident": 0,
+        "closest_cluster": 1, "any_cluster": 1}
     for a, b in zip(lists, cc.cull_plain(q["o3"], q["d3"], bmin, bmax, Le)):
         assert torch.equal(a, b)
     for a, b in zip(slists, cc.cull_plain(q["o3"], q["d3"], bmin, bmax, Le, tmax=q["tmax"])):
@@ -309,8 +311,8 @@ def test_resident_kernels_equal_streaming_and_plain(m, lmax, cuda_device):
     k5 = cc.any_resident(*slists, o3, d3, tmax, excl, packed, visits=v5)
     torch.cuda.synchronize()
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
-        "cull": 0, "closest_resident": 1, "any_resident": 1, "closest_cluster": 0,
-        "any_cluster": 0}
+        "cull": 0, "cull_beam": 0, "closest_resident": 1, "any_resident": 1,
+        "closest_cluster": 0, "any_cluster": 0}
     for field, a, b, c in zip(("t", "id", "u", "v", "attrs"), k4, k6, want):
         assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), field
     assert torch.equal(k5, k7) and torch.equal(k5, want_occ)
@@ -371,8 +373,8 @@ def test_visit_walks_on_built_rows_on_card(m, lmax, cuda_device):
     k5 = cc.any_resident(*slists, o3, d3, tmax, excl, packed, visits=counts["k5"])
     torch.cuda.synchronize()
     assert {k: cc.LAUNCHES[k] - before[k] for k in before} == {
-        "cull": 0, "closest_resident": 1, "any_resident": 1, "closest_cluster": 1,
-        "any_cluster": 1}
+        "cull": 0, "cull_beam": 0, "closest_resident": 1, "any_resident": 1,
+        "closest_cluster": 1, "any_cluster": 1}
     want = cc.closest_cluster_plain(*lists, o3, d3, packed, attrs)
     for field, a, b, c in zip(("t", "id", "u", "v", "attrs"), k6, k4, want):
         assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c)), field
@@ -499,6 +501,156 @@ def test_k3_checks_alignment_on_card(cuda_device):
     shifted.copy_(t["bmin"])
     with pytest.raises(ValueError, match="16-byte aligned"):
         cc.cull_sweep(t["o3"], t["d3"], shifted, t["bmax"])
+
+
+def _beam_inputs(dev, B0_, K, with_tmax, seed):
+    """Seeded boxes in the unit cube and B0_ rows of coherent rays (each row
+    a bundle around its own origin and direction, as the integrator's
+    sorted wavefronts are): row 0's x and y directions are +-0 (no definite
+    axis there), row 1's x directions straddle 0, one lane of row 2 has a
+    denormal x direction (1/D is infinite there: NaN products must miss),
+    row 3 starts inside the boxes' span."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(0.0, 0.9, (K, 3))
+    hi = lo + rng.uniform(0.02, 0.3, (K, 3))
+    o = rng.uniform(-0.5, 1.5, (B0_, 1, 3)) + rng.normal(scale=0.02, size=(B0_, 128, 3))
+    d = rng.normal(size=(B0_, 1, 3)) + rng.normal(scale=0.05, size=(B0_, 128, 3))
+    d[0, :, :2] = np.where(rng.uniform(size=(128, 2)) < 0.5, 0.0, -0.0)
+    if B0_ > 1:
+        d[1, :, 0] = rng.uniform(-0.1, 0.1, 128)
+    if B0_ > 2:
+        d[2, :, 0] = np.abs(d[2, :, 0]) + 0.1
+        d[2, 5, 0] = 1e-40
+    if B0_ > 3:
+        o[3] = 0.5
+    planar = lambda x: np.ascontiguousarray(x.astype(np.float32).transpose(2, 0, 1))
+    t = {"o3": planar(o), "d3": planar(d), "bmin": lo.astype(np.float32),
+         "bmax": hi.astype(np.float32),
+         "tmax": rng.uniform(0.0, 1.0, (B0_, 128)).astype(np.float32) if with_tmax else None}
+    return {k: None if v is None else torch.from_numpy(v).to(dev) for k, v in t.items()}
+
+
+BEAM_CASES = {
+    # name: (B0, K, tmax): rows not a multiple of the kernel's 8 a block,
+    # K past one tile of 1,024 boxes in shared memory
+    "one row, one box": (1, 1, False),
+    "rows 13, K 150": (13, 150, False),
+    "rows 13, K 150, tmax": (13, 150, True),
+    "rows 9, K 2,500": (9, 2500, False),
+    "rows 9, K 2,500, tmax": (9, 2500, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BEAM_CASES))
+def test_k3b_equals_plain_on_card(case, cuda_device):
+    """K3b (``csrc/cull_beam.cu``) against its plain sweep on the same card
+    tensors: count exact, keys bitwise (+0.0 entries, never -0.0); the
+    lists of ``cull_beam`` exact (nears and cutoff bitwise) at a width that
+    overflows and one that does not; every box K3 lists for a row among
+    them.  Each sweep is one launch."""
+    B0_, K, with_tmax = BEAM_CASES[case]
+    t = _beam_inputs(cuda_device, B0_, K, with_tmax, seed=list(BEAM_CASES).index(case))
+    args = (t["o3"], t["d3"], t["bmin"], t["bmax"], t["tmax"])
+    before = cc.LAUNCHES["cull_beam"]
+    count, key = cc.cull_beam_sweep(*args)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["cull_beam"] == before + 1
+    p_count, p_key = cc.cull_beam_sweep_plain(*args)
+    assert torch.equal(count, p_count) and torch.equal(_bits(key), _bits(p_key))
+    assert not bool(torch.signbit(key).any())
+    assert bool((count < K).any()) or K == 1
+    exact_hit = cc.cull_sweep_plain(*args)[2]
+    assert bool(((key < cc.BIG) | ~exact_hit).all())
+    for le in {1, min(4, K), K}:
+        got = cc.cull_beam(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+        want = cc.cull_beam_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+        for field, a, b in zip(("meta", "ids", "nears", "cutoff"), got, want):
+            assert torch.equal(_bits(a), _bits(b)), (le, field)
+
+
+@pytest.mark.cuda
+def test_k3b_with_no_boxes_on_card(cuda_device):
+    """K = 0: no launch (as K3, F3), every count zero, keys without a
+    column."""
+    t = _beam_inputs(cuda_device, 5, 3, False, seed=4)
+    junk = torch.full((5,), 7, dtype=torch.int32, device=cuda_device)
+    del junk
+    before = cc.LAUNCHES["cull_beam"]
+    for tmax in (None, torch.ones((5, 128), device=cuda_device)):
+        count, key = cc.cull_beam_sweep(t["o3"], t["d3"], t["bmin"][:0], t["bmax"][:0], tmax)
+        torch.cuda.synchronize()
+        assert torch.equal(count, torch.zeros(5, dtype=torch.int32, device=cuda_device))
+        assert key.shape == (5, 0)
+    assert cc.LAUNCHES["cull_beam"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [False, True])
+def test_beam_pair_equals_exact_pair_on_card(stream, cuda_device):
+    """atrium(2_200) at M = 32: the beam-culled pair launches K3b (and no
+    K3) and answers exactly as the exact-culled pair on the card."""
+    scene = build_scene_tensors(atrium(2_200, seed=5), device=cuda_device)
+    ca = build_clusters(*(x.cpu().numpy() for x in (scene.tri_v0, scene.tri_v1,
+                                                      scene.tri_v2)), 32)
+    rng = np.random.default_rng(8)
+    lo, hi = scene.world_min.cpu().numpy(), scene.world_max.cpu().numpy()
+    o = torch.tensor(rng.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (1280, 3)),
+                     dtype=torch.float32, device=cuda_device)
+    d = torch.tensor(rng.normal(size=(1280, 3)), dtype=torch.float32, device=cuda_device)
+    outs = {}
+    for beam in (False, True):
+        cf, af = cc.make_cluster_intersectors(scene, clusters=ca, stream=stream, beam=beam)
+        before = dict(cc.LAUNCHES)
+        res = cf(o, d)
+        occ = af(o, d, torch.where(res.hit, res.t * 0.9, 1e9),
+                 torch.full((1280,), -1, dtype=torch.int32, device=cuda_device))
+        torch.cuda.synchronize()
+        grew = {k for k, n in cc.LAUNCHES.items() if n > before[k]}
+        assert grew == {"cull_beam" if beam else "cull", *cc.ROUTES[cf.route]}
+        outs[beam] = (res, occ)
+    (a, a_occ), (b, b_occ) = outs[False], outs[True]
+    for f in ("hit", "t", "tid", "u", "v"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a_occ, b_occ) and bool(a.hit.any())
+
+
+@pytest.mark.cuda
+def test_onehot_backward_deterministic_on_card(cuda_device):
+    """The dense backward's one-hot fetch and the light row's on the card:
+    two fwd+bwd runs of a weighted Cornell loss give bitwise-equal
+    gradients, and so does a run under ``set_float32_matmul_precision
+    ("high")`` (TF32 would round the fetched rows, and the recompute's t,
+    u, v with them: the products are forced to full FP32)."""
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+    from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA as cam
+    from chiaroscuro_tpu_torch.scene.scene_arrays import params_from_numpy
+
+    assert ic._BWD_ONEHOT is None        # the size rule: 36 triangles, the product
+    scene = build_scene_tensors(cornell_box(), device=cuda_device)
+
+    def grads():
+        p = params_from_numpy({k: getattr(scene, k).cpu().numpy()
+                               for k in ("kd", "ke", "tri_v0")}, cuda_device)
+        s = scene.replace(**p)
+        cf, af = make_intersectors(s, "dense")
+        xs, ys = _pixels(64, 64, cuda_device)
+        img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], 64, 64,
+                             xs, ys, 0, 2, 0, 3, (0.0, 0.0, 0.0), cf, af)
+        (img * torch.linspace(0.5, 1.5, img.numel(), device=cuda_device)
+         .reshape(img.shape)).mean().backward()
+        return {k: v.grad.cpu() for k, v in p.items()}
+
+    runs = [grads(), grads()]
+    torch.set_float32_matmul_precision("high")
+    try:
+        runs.append(grads())
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for k, g in runs[0].items():
+        assert float(g.abs().max()) > 0, k
+        for other in runs[1:]:
+            assert torch.equal(_bits(other[k]), _bits(g)), k
 
 
 def _x1_inputs(dev):

@@ -10,10 +10,9 @@ tensors the kernel's plain version inside the closest-hit
 the same Function).  Parameters are made with numpy (a JAX ``SceneArrays``
 read out) and carried across with ``params_from_numpy``.
 
-Not ported: ``test_bwd_onehot_fetch_matches_gather`` (test_gradients.py:252).
-It holds the TPU-only one-hot MXU fetch of the JAX backward against its
-gather; the port's backward has only the gather (``_recompute_hit``), so
-there is nothing to compare.
+``test_bwd_onehot_fetch_matches_gather`` (test_gradients.py:252), the
+backward's one-hot fetch against its gather, is ported in
+tests/test_torch_fetch.py with the rest of the one-hot fetches.
 
 Tolerances, each with its reason:
 
