@@ -13,9 +13,10 @@ The host side of ``chiaroscuro_tpu/ops/cluster_pallas.py``:
   (B0, 1) f32, Le = min(Lmax, K).
 - ``cull_beam`` is K3b (``_cull_rows_beam`` :294, ``_rowhit_beam`` :226),
   the opt-in conservative cull: each row's origin and direction bounds
-  against every box by interval arithmetic (:func:`cull_beam_sweep`: on a
-  card ``csrc/cull_beam.cu``; plain :func:`cull_beam_sweep_plain`), the
-  same count and keys, then the same :func:`_order_hits`.
+  against every box by interval arithmetic, and the same lists.  On a card
+  one kernel (``csrc/cull_beam.cu``) sweeps a row's boxes into shared
+  memory and selects its list there; plain, :func:`cull_beam_sweep_plain`
+  (the same count and keys as K3's sweep) and :func:`_order_hits`.
 - ``closest_resident`` is K4 (``_closest_kernel`` :485) and ``any_resident``
   K5 (``_any_kernel`` :550); ``closest_cluster`` is K6
   (``_stream_closest_kernel`` :627) and ``any_cluster`` K7
@@ -338,67 +339,77 @@ def cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax=None):
 @functools.cache
 def build_cull_beam() -> tuple:
     """Build and load ``csrc/cull_beam.cu`` (``ops/cuda_build.py``);
-    returns ``(lib, info)``.  A failed build raises."""
+    returns ``(lib, info)``.  A failed build raises.  The library also
+    exports the two-step cull's sweep (``cull_beam_sweep_launch``: the
+    (B0, K) keys for :func:`_order_hits`), which ``chip_smoke.py`` times
+    beside :func:`cull_beam`; the port never calls it."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    return bind("cull_beam", {"cull_beam_launch": [vp] * 5 + [ci, ci] + [vp] * 3})
-
-
-def cull_beam_sweep(o3, d3, bmin, bmax, tmax=None):
-    """K3b's sweep: the conservative per-row interval test of every box
-    (:func:`cull_beam_sweep_plain`), with :func:`cull_sweep`'s inputs and
-    its (count (B0,) int32, key (B0, K) f32).  With K = 0 nothing is
-    launched (on either device).  On CUDA tensors it launches
-    ``csrc/cull_beam.cu`` (built by ``nvcc`` for ``sm_90a`` at first use,
-    bound with ``ctypes``) and counts it in ``LAUNCHES["cull_beam"]``, or
-    raises; on CPU tensors it takes the plain version.  The inputs are
-    taken detached."""
-    o3, d3 = o3.detach(), d3.detach()
-    if tmax is not None:
-        tmax = tmax.detach()
-    device = _launch_device(o3, d3, bmin, bmax)
-    B0, K = o3.shape[1], bmin.shape[0]
-    _check("o3", o3, (3, B0, LANE), torch.float32, device)
-    _check("d3", d3, (3, B0, LANE), torch.float32, device)
-    _check("bmin", bmin, (K, 3), torch.float32, device)
-    _check("bmax", bmax, (K, 3), torch.float32, device)
-    if tmax is not None:
-        _check("tmax", tmax, (B0, LANE), torch.float32, device)
-    if K == 0:
-        return (torch.zeros((B0,), dtype=torch.int32, device=device),
-                torch.empty((B0, 0), dtype=torch.float32, device=device))
-    if device.type == "cpu":
-        return cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
-    lib, _ = build_cull_beam()
-    key = torch.empty((B0, K), dtype=torch.float32, device=device)
-    count = torch.empty((B0,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.cull_beam_launch(
-            o3.data_ptr(), d3.data_ptr(), None if tmax is None else tmax.data_ptr(),
-            bmin.data_ptr(), bmax.data_ptr(), B0, K, key.data_ptr(),
-            count.data_ptr(), stream,
-        )
-    check_launch(lib, err, "cull_beam")
-    LAUNCHES["cull_beam"] += 1
-    return count, key
+    lib, info = bind("cull_beam", {
+        "cull_beam_launch": [vp] * 5 + [ci, ci, ci] + [vp] * 5,
+        "cull_beam_sweep_launch": [vp] * 5 + [ci, ci] + [vp] * 3,
+    })
+    lib.cull_beam_smem_bytes.argtypes, lib.cull_beam_smem_bytes.restype = [ci, ci], ci
+    lib.cull_beam_smem_limit.argtypes, lib.cull_beam_smem_limit.restype = [], ci
+    return lib, info
 
 
 def cull_beam_plain(o3, d3, bmin, bmax, Le, tmax=None):
-    """Plain torch K3b: same inputs and outputs as :func:`cull_beam`."""
+    """Plain torch K3b: same inputs and outputs as :func:`cull_beam` (the
+    plain sweep, then the stable sort of :func:`_order_hits`)."""
     return _order_hits(*cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax), Le)
 
 
 def cull_beam(o3, d3, bmin, bmax, Le, tmax=None):
     """K3b: the conservative per-row beam cull (``_cull_rows_beam``,
     ``cluster_pallas.py:294``), :func:`cull`'s inputs and (meta, ids,
-    nears, cutoff): the sweep (:func:`cull_beam_sweep`), then
-    :func:`_order_hits`, the epilogue both culls share.  Its lists hold
+    nears, cutoff), equal to :func:`cull_beam_plain`'s.  Its lists hold
     every box K3's hold (and more), with lower entries, so the visits'
-    results do not change; the inputs are taken detached."""
+    results do not change; the inputs are taken detached.
+
+    On CUDA tensors one kernel (``csrc/cull_beam.cu``, built by ``nvcc``
+    for ``sm_90a`` at first use, bound with ``ctypes``) sweeps each row's
+    boxes into shared memory and selects its Le + 1 nearest there
+    (``csrc/row_select.cuh``): no (B0, K) tensor and no sort.  It is
+    counted in ``LAUNCHES["cull_beam"]``; a row's K keys and its list must
+    fit in a block's shared memory (K up to 53,952 at Le = 1,536 on an
+    H100), else it raises ValueError, and a failed launch raises.  On CPU
+    tensors it takes :func:`cull_beam_plain`."""
     K = bmin.shape[0]
     if not 1 <= Le <= K:
         raise ValueError(f"list width Le={Le} must lie in [1, K={K}]")
-    return _order_hits(*cull_beam_sweep(o3, d3, bmin, bmax, tmax), Le)
+    o3, d3 = o3.detach(), d3.detach()
+    if tmax is not None:
+        tmax = tmax.detach()
+    device = _launch_device(o3, d3, bmin, bmax)
+    B0 = o3.shape[1]
+    _check("o3", o3, (3, B0, LANE), torch.float32, device)
+    _check("d3", d3, (3, B0, LANE), torch.float32, device)
+    _check("bmin", bmin, (K, 3), torch.float32, device)
+    _check("bmax", bmax, (K, 3), torch.float32, device)
+    if tmax is not None:
+        _check("tmax", tmax, (B0, LANE), torch.float32, device)
+    if device.type == "cpu":
+        return cull_beam_plain(o3, d3, bmin, bmax, Le, tmax)
+    lib, _ = build_cull_beam()
+    with torch.cuda.device(device):
+        need, have = lib.cull_beam_smem_bytes(K, Le), lib.cull_beam_smem_limit()
+        if need > have:
+            raise ValueError(
+                f"K3b keeps a row's K={K} keys and its list of Le + 1 = {Le + 1} in shared "
+                f"memory: {need} bytes, above the {have} a block of this card may take")
+        meta = torch.empty((B0, 2), dtype=torch.int32, device=device)
+        ids = torch.empty((B0, Le), dtype=torch.int32, device=device)
+        nears = torch.empty((B0, Le), dtype=torch.float32, device=device)
+        cutoff = torch.empty((B0, 1), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.cull_beam_launch(
+            o3.data_ptr(), d3.data_ptr(), None if tmax is None else tmax.data_ptr(),
+            bmin.data_ptr(), bmax.data_ptr(), B0, K, Le, meta.data_ptr(), ids.data_ptr(),
+            nears.data_ptr(), cutoff.data_ptr(), stream,
+        )
+    check_launch(lib, err, "cull_beam")
+    LAUNCHES["cull_beam"] += 1
+    return meta, ids, nears, cutoff
 
 
 # ---------------------------------------------------------------------------

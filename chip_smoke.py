@@ -46,13 +46,17 @@ raises, exits non-zero and prints no result line.
    timed beside K3's sweep and the whole K3 cull on the same rays.  K3's
    sweep is also timed on 1 to 4 waves of resident blocks' worth of rows.
    Then K3b, the beam cull, on the primary, bounce and shadow wavefronts
-   (``beam_checks``): count and keys bitwise equal to its plain sweep, its
-   lists to the plain lists, every box K3 hits among its hits (the boxes
-   whose beam entry lies above K3's counted); the trips of both lists; the
-   route's visit kernel on both, every lane's answer bitwise equal, its
-   per-warp visits on the beam lists equal to the replay of the exit rule
-   on ROW_SAMPLE seeded rows and 32 seeded overflow rows; K3b's sweep and whole cull timed beside K3's with its
-   bound and plain sweep, and the visits on both lists.
+   (``beam_checks``): its lists (one kernel: the sweep and the selection)
+   bitwise equal to the plain version's and to those of the two-step it
+   replaced (``beam_two_step``: its sweep kernel, held bitwise to the plain
+   sweep, then the stable sort), every box K3 hits among its hits (the
+   boxes whose beam entry lies above K3's counted); the trips of both
+   lists; the route's visit kernel on both, every lane's answer bitwise
+   equal, its per-warp visits on the beam lists equal to the replay of the
+   exit rule on ROW_SAMPLE seeded rows and 32 seeded overflow rows; K3b's
+   whole cull timed in turns with the two-step's (it must be faster) and
+   beside K3's, with its bound, its plain version's time and the peak
+   memory of one call of each, and the visits on both lists.
 2c. The same at Sponza scale (``synthetic:atrium:262144``, 261,396
    triangles, K = 2,043): the same four wavefronts of its 1280x720 frame.
    The same checks on its route, K4/K5; then on every row of
@@ -230,13 +234,14 @@ largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
 CUDA events over a loop of calls, their kernel time by torch.profiler
 printed beside it in phase 4; X2 and its library call: kernel time by
 torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
-ones', K3b's sweep on the 481k primary wavefront, B1/B2 on the 481k
+ones', K3b's whole cull on the 481k primary wavefront, B1/B2 on the 481k
 primary and shadow wavefronts' sample) and its
 plain version's on the stated inputs, and the bound: the
 larger of the FP32 operations those inputs need (K1/K2: the tests the
 warp-uniform reject leaves; visits counted by the replay of the per-warp
 exit rule; occlusion lanes tested only up to their first blocker; K3b:
-BEAM_AXIS_OPS a definite axis of a row and BEAM_TAIL_OPS a (row, box);
+BEAM_AXIS_OPS a definite axis of a row and BEAM_TAIL_OPS a (row, box),
+against the rays and boxes read and the lists written;
 B1/B2: BOX_OPS a step and MT_OPS a leaf test of the plain walk's) over the
 card's unfused FP32 rate and the bytes read and written once over its
 memory rate.
@@ -308,7 +313,8 @@ CULL_CHUNK = 64
 # FP32 operations of K3b (csrc/cull_beam.cu) per (row, box): a definite
 # axis 4 sub, 8 mul and the 16 min/max of the two planes' intervals and
 # their combination; then the two hit compares, the entry's max and + 0.0
-# and the select (one more compare with tmax).
+# and the select (one more compare with tmax).  The selection of each row's
+# list is integer work and is not counted.
 BEAM_AXIS_OPS = 28
 BEAM_TAIL_OPS = 5
 
@@ -978,50 +984,85 @@ def beam_ops(d3, K, with_tmax):
     return int((BEAM_AXIS_OPS * n_def + BEAM_TAIL_OPS + with_tmax).sum()) * K
 
 
+def beam_two_step(cc, o3, d3, bmin, bmax, Le, tmax=None):
+    """The two-step K3b that the fused kernel replaced, kept for the A/B in
+    ``beam_checks``: its sweep kernel (``cull_beam_sweep_launch``, the
+    (B0, K) keys and counts), then :func:`cc._order_hits` (not where ``Le``
+    is None: the sweep alone).  Returns (count, key, lists or None); not
+    counted in ``cc.LAUNCHES``."""
+    lib, _ = cc.build_cull_beam()
+    B0, K = o3.shape[1], bmin.shape[0]
+    key = torch.empty((B0, K), dtype=torch.float32, device=o3.device)
+    count = torch.empty((B0,), dtype=torch.int32, device=o3.device)
+    err = lib.cull_beam_sweep_launch(
+        o3.data_ptr(), d3.data_ptr(), None if tmax is None else tmax.data_ptr(),
+        bmin.data_ptr(), bmax.data_ptr(), B0, K, key.data_ptr(), count.data_ptr(),
+        torch.cuda.current_stream(o3.device).cuda_stream)
+    cc.check_launch(lib, err, "cull_beam_sweep")
+    return count, key, None if Le is None else cc._order_hits(count, key, Le)
+
+
+def beam_peak_mib(fn):
+    """Peak device memory one call of ``fn`` allocates beyond what was held
+    before it, MiB."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    sync()
+    return (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
 def beam_checks(cc, card, name, waves, bmin, bmax, packed, attrs, route, rng,
                 replay_sample=None, plain_times=False, visit_reps=3):
     """K3b on each wavefront ({name: (o3, d3, tmax, excl)}), beside K3 on
-    the same rays: its count and keys bitwise equal to the plain sweep, its
-    lists to the plain lists; every box K3 finds among its hits (and the
-    boxes whose beam entry lies above K3's entry counted: the rounding
-    hazard of a row bound); trip mean and p50 of both lists; the route's
-    visit kernel on both lists, its answers bitwise equal (any lane that
-    differs fails), its per-warp visits equal to the replay of the exit
-    rule on every row (where ``replay_sample = (n, n_over)`` is given, on n
-    seeded rows that fit their beam list and n_over seeded rows that
+    the same rays: its lists bitwise equal to the plain version's (the
+    plain sweep, then the stable sort), and to the two-step's
+    (``beam_two_step``: the sweep kernel the fused one replaced, whose keys
+    are held bitwise to the plain sweep's); every box K3 finds among its
+    hits (and the boxes whose beam entry lies above K3's entry counted: the
+    rounding hazard of a row bound); trip mean and p50 of both lists; the
+    route's visit kernel on both lists, its answers bitwise equal (any lane
+    that differs fails), its per-warp visits equal to the replay of the
+    exit rule on every row (where ``replay_sample = (n, n_over)`` is given,
+    on n seeded rows that fit their beam list and n_over seeded rows that
     overflowed it: an overflow row's replay sweeps up to every cluster, a
-    Python step a visit) and timed on both in
-    turns (exact, beam, beam, exact; ``visit_reps`` launches a turn);
-    K3b's sweep and whole cull timed beside K3's, with its bound (and,
-    where ``plain_times``, its plain sweep's time).
-    Returns {wavefront: record}, the largest |kernel - plain| of the keys
-    and the lanes whose beam answer differed (zero, or the check failed)."""
+    Python step a visit) and timed on both in turns (exact, beam, beam,
+    exact; ``visit_reps`` launches a turn); K3b's whole cull timed in turns
+    with the two-step's (new, old, old, new) and beside K3's, with its bound
+    and the peak device memory of one call of each (and, where
+    ``plain_times``, the plain version's time).  Returns {wavefront:
+    record}, the largest |kernel - plain| of the lists' floats and the
+    lanes whose beam answer differed (zero, or the check failed)."""
     out, err = {}, 0.0
     K = bmin.shape[0]
     Le = min(cc.DEFAULT_LMAX, K)
     for wname, (o3, d3, tmax, excl) in waves.items():
         t_wave = time.perf_counter()
         nB0 = o3.shape[1]
-        count, key = cc.cull_beam_sweep(o3, d3, bmin, bmax, tmax)
-        p_count, p_key = cc.cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
         b_lists = cc.cull_beam(o3, d3, bmin, bmax, Le, tmax=tmax)
+        count, key, old_lists = beam_two_step(cc, o3, d3, bmin, bmax, Le, tmax)
+        p_count, p_key = cc.cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
         p_lists = cc._order_hits(p_count, p_key, Le)
         sync()
         if not (torch.equal(count, p_count) and torch.equal(bits(key), bits(p_key))):
-            raise AssertionError(f"{name}/{wname}: K3b differs from its plain sweep")
+            raise AssertionError(f"{name}/{wname}: the two-step's sweep differs from the plain "
+                                 "sweep")
         if bool(torch.signbit(key).any()):
             raise AssertionError(f"{name}/{wname}: a K3b key is -0.0")
-        for field, a, b in zip(("meta", "ids", "nears", "cutoff"), b_lists, p_lists):
-            if not torch.equal(bits(a), bits(b)):
-                raise AssertionError(f"{name}/{wname}: K3b's lists differ from plain in {field}")
-        err = max(err, max_err(key, p_key))
-        del p_count, p_key, p_lists
+        for field, a, b, c in zip(("meta", "ids", "nears", "cutoff"), b_lists, p_lists,
+                                  old_lists):
+            if not (torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(c))):
+                raise AssertionError(f"{name}/{wname}: K3b's lists differ from plain (or the "
+                                     f"two-step's) in {field}")
+        err = max(err, max_err(b_lists[2], p_lists[2]), max_err(b_lists[3], p_lists[3]))
+        del p_count, p_key, p_lists, old_lists
         e_count, e_key, e_hit = cc.cull_sweep(o3, d3, bmin, bmax, tmax, hits=True)
         e_lists = cc._order_hits(e_count, e_key, Le)
         if not bool(((key < cc.BIG) | ~e_hit).all()):
             raise AssertionError(f"{name}/{wname}: K3b missed a box K3 hit")
         above = int((e_hit & (key > e_key)).sum())
-        del e_key, e_hit
+        del e_key, e_hit, key
         trips = {c: lists[0][:, 0].float() for c, lists in (("exact", e_lists), ("beam", b_lists))}
         over = {c: int(lists[0][:, 1].sum()) for c, lists in (("exact", e_lists), ("beam", b_lists))}
         closest = tmax is None
@@ -1057,12 +1098,15 @@ def beam_checks(cc, card, name, waves, bmin, bmax, packed, attrs, route, rng,
         k3 = {"K3 cull": lambda: cc.cull(o3, d3, bmin, bmax, Le, tmax=tmax),
               "K3 sweep": lambda: cc.cull_sweep(o3, d3, bmin, bmax, tmax),
               "K3b cull": lambda: cc.cull_beam(o3, d3, bmin, bmax, Le, tmax=tmax),
-              "K3b sweep": lambda: cc.cull_beam_sweep(o3, d3, bmin, bmax, tmax)}
+              "two-step cull": lambda: beam_two_step(cc, o3, d3, bmin, bmax, Le, tmax),
+              "two-step sweep": lambda: beam_two_step(cc, o3, d3, bmin, bmax, None, tmax)}
         reps = {n: 10 for n in k3}
         if plain_times:
-            k3["K3b plain sweep"] = lambda: cc.cull_beam_sweep_plain(o3, d3, bmin, bmax, tmax)
-            reps["K3b plain sweep"] = 2
+            k3["K3b plain cull"] = lambda: cc.cull_beam_plain(o3, d3, bmin, bmax, Le, tmax=tmax)
+            reps["K3b plain cull"] = 2
         t_cull = time_turns(k3, reps)
+        peak = {"K3b cull": beam_peak_mib(k3["K3b cull"]),
+                "two-step cull": beam_peak_mib(k3["two-step cull"])}
         # The visits in turns, warm from the comparison above.
         turns = {"exact": [], "beam": []}
         for c in ("exact", "beam", "beam", "exact"):
@@ -1071,18 +1115,22 @@ def beam_checks(cc, card, name, waves, bmin, bmax, packed, attrs, route, rng,
                                                       attrs), visit_reps))
         t_visit = {c: (sum(t) / 2, tuple(t)) for c, t in turns.items()}
         reads = nB0 * 128 * (24 + (4 if tmax is not None else 0)) + K * 24
+        ops = beam_ops(d3, K, tmax is not None)
         rec = dict(
             rows=nB0, t_cull=t_cull, t_visit=t_visit, above=above, differ=differ, over=over,
             trips={c: (float(t.mean()), float(t.median())) for c, t in trips.items()},
-            visits={c: float(v.float().mean()) for c, v in visits.items()},
-            sweep_bound=bound(beam_ops(d3, K, tmax is not None), reads + nB0 * (4 + 4 * K)),
+            visits={c: float(v.float().mean()) for c, v in visits.items()}, peak=peak,
+            cull_bound=bound(ops, reads + nB0 * (12 + 8 * Le)),
+            sweep_bound=bound(ops, reads + nB0 * (4 + 4 * K)),
             hits=int(count.sum()), exact_hits=int(e_count.sum()), replayed=rows.numel())
         out[wname] = rec
         fmt = lambda n: f"{t_cull[n][0]:.1f} us (turns {t_cull[n][1][0]:.1f}, {t_cull[n][1][1]:.1f})"
-        b_ms, b_by = rec["sweep_bound"]
-        print(f"[beam] {card}: {name}/{wname} B0={nB0} K={K}: K3b equals its plain sweep and "
-              f"lists; hit (row, box) pairs K3b {rec['hits']} against K3 {rec['exact_hits']}; "
-              f"beam entries above K3's {above}; trip mean/p50 exact "
+        c_ms, c_by = rec["cull_bound"]
+        s_ms, s_by = rec["sweep_bound"]
+        new_us, old_us = t_cull["K3b cull"][0], t_cull["two-step cull"][0]
+        print(f"[beam] {card}: {name}/{wname} B0={nB0} K={K}: K3b's lists equal the plain "
+              f"version's and the two-step's; hit (row, box) pairs K3b {rec['hits']} against K3 "
+              f"{rec['exact_hits']}; beam entries above K3's {above}; trip mean/p50 exact "
               f"{rec['trips']['exact'][0]:.1f}/{rec['trips']['exact'][1]:.0f}, beam "
               f"{rec['trips']['beam'][0]:.1f}/{rec['trips']['beam'][1]:.0f}; overflow rows exact "
               f"{over['exact']}, beam {over['beam']}; {KERNEL_IDS[k]} answers on the beam lists "
@@ -1092,15 +1140,23 @@ def beam_checks(cc, card, name, waves, bmin, bmax, packed, attrs, route, rng,
               + (")" if replay_sample is None else
                  f", {int(b_lists[0][rows, 1].sum())} of them overflow rows)")
               + f"; {time.perf_counter() - t_wave:.1f} s")
-        print(f"[timing] {card}: {name}/{wname}: K3b sweep {fmt('K3b sweep')}, bound "
-              f"{b_ms * 1e3:.1f} us ({b_by}); K3b whole cull {fmt('K3b cull')}; K3 sweep "
-              f"{fmt('K3 sweep')}, K3 whole cull {fmt('K3 cull')}"
-              + (f"; K3b plain sweep {fmt('K3b plain sweep')}" if plain_times else "")
+        print(f"[timing] {card}: {name}/{wname}: K3b whole cull (one kernel) {fmt('K3b cull')}, "
+              f"bound {c_ms * 1e3:.1f} us ({c_by}; {100 * c_ms * 1e3 / new_us:.1f}% of it), "
+              f"peak {peak['K3b cull']:.1f} MiB; the two-step it replaced "
+              f"{fmt('two-step cull')} ({old_us / new_us:.2f}x the new; "
+              f"{100 * c_ms * 1e3 / old_us:.1f}% of the bound), peak "
+              f"{peak['two-step cull']:.1f} MiB, its sweep {fmt('two-step sweep')} (bound "
+              f"{s_ms * 1e3:.1f} us, {s_by}; {100 * s_ms * 1e3 / t_cull['two-step sweep'][0]:.1f}%"
+              f"); K3 sweep {fmt('K3 sweep')}, K3 whole cull {fmt('K3 cull')}"
+              + (f"; K3b plain cull {fmt('K3b plain cull')}" if plain_times else "")
               + f"; {KERNEL_IDS[k]} on all rows on the exact lists {t_visit['exact'][0]:.1f} us "
               f"(turns {t_visit['exact'][1][0]:.1f}, {t_visit['exact'][1][1]:.1f}), on the beam "
               f"lists {t_visit['beam'][0]:.1f} us (turns {t_visit['beam'][1][0]:.1f}, "
               f"{t_visit['beam'][1][1]:.1f})")
-        del e_lists, b_lists, res, visits, key, count, e_count
+        if not new_us < old_us:
+            raise AssertionError(f"{name}/{wname}: the fused K3b ({new_us:.1f} us) is not faster "
+                                 f"than the two-step it replaced ({old_us:.1f} us)")
+        del e_lists, b_lists, res, visits, count, e_count
     return out, err
 
 
@@ -1423,7 +1479,7 @@ def sass_mix(path, kernel, per, what="box"):
             continue
         keys = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "SEL", "FSEL", "LOP3", "ISETP",
                 "REDUX", "VOTE", "LDS", "LDG", "LD", "STS", "STG", "BAR", "SYNCS", "UBLKCP",
-                "CCTL", "MUFU", "FCHK", "CALL", "BRA", "SHFL", "ATOMG")
+                "CCTL", "MUFU", "FCHK", "CALL", "BRA", "SHFL", "ATOMG", "ATOMS")
         parts = ", ".join(f"{k} {mix.get(k, 0)}" + (f" ({mix.get(k, 0) / per:.2f})" if per > 1
                                                      else "") for k in keys)
         print(f"[build] sass {name}: {sum(mix.values())} instructions"
@@ -1921,6 +1977,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {line.strip()}")
     sass_mix(cc.build_cull()[1]["path"], "cull_rows_kernel", CULL_CHUNK)
+    # K3b: the whole mix of each variant (the sweep's FMNMX against its
+    # FMUL and FADD; ATOMS, VOTE and BAR the selection's).
+    sass_mix(cc.build_cull_beam()[1]["path"], "cull_beam_kernel", 1)
     # K1/K2: each kernel's whole instruction mix (MUFU and CALL show how 1/a
     # compiles, VOTE the warp votes).
     sass_mix(ic.build()[1]["path"], "dense_kernel", 1)
@@ -3050,9 +3109,9 @@ def main() -> int:
               "chiaroscuro_tpu/ops/cluster_pallas.py:310", cluster_errs["cull"],
               cull_t["us"] / 1e3, cull_t["plain_us"] / 1e3, cull_t["bound"]),
         entry("cull_beam", "cuda", "chiaroscuro_tpu_torch/csrc/cull_beam.cu",
-              "chiaroscuro_tpu/ops/cluster_pallas.py:226", beam_err,
-              beam_t["t_cull"]["K3b sweep"][0] / 1e3,
-              beam_t["t_cull"]["K3b plain sweep"][0] / 1e3, beam_t["sweep_bound"]),
+              "chiaroscuro_tpu/ops/cluster_pallas.py:294", beam_err,
+              beam_t["t_cull"]["K3b cull"][0] / 1e3,
+              beam_t["t_cull"]["K3b plain cull"][0] / 1e3, beam_t["cull_bound"]),
         visit_entry("closest_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:485",
                     mtimings[("closest_resident", "primary")]),
         visit_entry("any_resident", "chiaroscuro_tpu/ops/cluster_pallas.py:550",

@@ -17,6 +17,7 @@ intersectors' results are exact either way: equal to the exact cull's.
 """
 
 import dataclasses
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,10 +122,11 @@ def test_plain_beam_sweep_equals_jax(atrium_case, with_tmax):
     assert 0.0 < hit.mean() < 1.0 and hit.sum(axis=1).min() < hit.shape[1]
 
 
-@pytest.mark.parametrize("lmax", [4, cc.DEFAULT_LMAX])
+@pytest.mark.parametrize("lmax", [4, 20, 84, cc.DEFAULT_LMAX])
 @pytest.mark.parametrize("with_tmax", [False, True])
 def test_beam_lists_equal_jax(atrium_case, lmax, with_tmax):
-    """meta and ids exact, nears and cutoff bitwise; Lmax = 4 overflows."""
+    """meta and ids exact, nears and cutoff bitwise; Lmax = 4 overflows,
+    84 leaves one of the K = 85 boxes out, the default takes all."""
     _, _, jca, o3, d3, tmax = atrium_case
     tm = tmax if with_tmax else None
     Le = min(lmax, jca.K)
@@ -142,6 +144,200 @@ def test_beam_lists_equal_jax(atrium_case, lmax, with_tmax):
         assert torch.equal(a, b)
     if lmax == 4:
         assert got[0][:, 1].all()
+    assert Le < jca.K or lmax == cc.DEFAULT_LMAX
+
+
+# ---------------------------------------------------------------------------
+# A torch model of the card's selection (csrc/row_select.cuh), held against
+# the stable sort of _order_hits on crafted key matrices.
+# ---------------------------------------------------------------------------
+
+BIG_BITS = int(np.float32(cc.BIG).view(np.int32))    # 0x7F61B1E6
+BINS = 2048                                          # 11-bit digits: 30..20, 19..9, 8..0
+
+
+def _find_bin(hist, r):
+    """The bin holding rank r of the counts: (bin, counts before it, its own)."""
+    cum = torch.cumsum(hist, 0)
+    b = int(torch.searchsorted(cum, torch.tensor(r), right=True))
+    return b, int(cum[b] - hist[b]), int(hist[b])
+
+
+def _select_row(bits, r):
+    """row_select::select on one row's key bits (K,) int64: the pair of
+    rank r as (prefix, shift, below, rank, all, path).  Zero and BIG keys are
+    tallied apart from the histograms' other keys and added to their bins,
+    as the kernel adds them; path names where the select stopped and after
+    how many digits."""
+    n_big, n_zero = int((bits == BIG_BITS).sum()), int((bits == 0).sum())
+    special = (bits == BIG_BITS) | (bits == 0)
+    prefix, shift, below, in_bin, passes = 0, 31, 0, bits.numel(), 0
+    while True:
+        if prefix == 0 and r < n_zero:
+            shift, in_bin, path = 0, n_zero, "zero"
+            break
+        if prefix == BIG_BITS >> shift and r >= in_bin - n_big:
+            below, r = below + in_bin - n_big, r - (in_bin - n_big)
+            prefix, shift, in_bin, path = BIG_BITS, 0, n_big, "big"
+            break
+        if in_bin == r + 1 or shift == 0:
+            path = f"{'all' if in_bin == r + 1 else 'ties'} after {passes}"
+            break
+        nxt = {31: 20, 20: 9, 9: 0}[shift]
+        hist = torch.bincount((bits[((bits >> shift) == prefix) & ~special] >> nxt) & (BINS - 1),
+                              minlength=BINS)
+        if prefix == 0:
+            hist[0] += n_zero
+        if prefix == BIG_BITS >> shift:
+            hist[(BIG_BITS >> nxt) & (BINS - 1)] += n_big
+        b, before, in_bin = _find_bin(hist, r)
+        prefix, below, r = (prefix << (shift - nxt)) | b, below + before, r - before
+        shift, passes = nxt, passes + 1
+    return prefix, shift, below, r, in_bin == r + 1, path
+
+
+def _lists_model(count, key, Le):
+    """row_select::write_lists on every row: the pairs below the threshold
+    (the whole bin where all its keys are taken) sorted as 64-bit
+    (bits << 32) | id, then the threshold's first ties in id order.
+    Returns _order_hits's (meta, ids, nears, cutoff) and each row's path."""
+    B0, K = key.shape
+    bits = key.view(torch.int32).long()
+    take = min(Le + 1, K)
+    ids = torch.empty((B0, Le), dtype=torch.int32)
+    nears = torch.empty((B0, Le), dtype=torch.float32)
+    excl = torch.empty((B0,), dtype=torch.int32)
+    paths = []
+    for b in range(B0):
+        prefix, shift, below, rank, all_, path = _select_row(bits[b], take - 1)
+        kid = torch.arange(K)
+        sel = (bits[b] >> shift) <= prefix if all_ else bits[b] < prefix
+        pairs = torch.sort((bits[b][sel] << 32) | kid[sel]).values
+        order = pairs & 0xFFFFFFFF
+        if not all_:
+            assert pairs.numel() == below
+            order = torch.cat([order, kid[bits[b] == prefix][:rank + 1]])
+        assert order.numel() == take, (b, path)
+        ids[b] = order[:Le].to(torch.int32)
+        nears[b] = bits[b][order[:Le]].to(torch.int32).view(torch.float32)
+        excl[b] = BIG_BITS if K <= Le else int(bits[b][order[Le]])
+        paths.append(path)
+    over = count > Le
+    meta = torch.stack([torch.where(over, Le, count), over.to(torch.int32)], dim=1)
+    cutoff = torch.where(over, excl.view(torch.float32), float("inf"))[:, None]
+    return (meta, ids, nears, cutoff), paths
+
+
+def _f32(bits):
+    return np.asarray(bits, np.int32).view(np.float32)
+
+
+def _key_case(name):
+    """(count (B0,) int32, key (B0, K) f32, Le) of one crafted case: rows of
+    hits (keys below BIG, or equal to it where a hit's entry is BIG) and
+    misses (BIG), K and Le small enough to craft the boundary."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    K, Le = 40, 8
+    rows = []                                   # (key row, hit count)
+
+    def hits(n, keys=None):
+        """A row of n hits at random boxes, the rest misses."""
+        row = np.full(K, cc.BIG, np.float32)
+        at = rng.choice(K, n, replace=False)
+        row[at] = rng.uniform(0.5, 60.0, n).astype(np.float32) if keys is None else keys
+        return row, n
+
+    if name == "ties straddle Le":
+        for lo, n_tie in ((5, 6), (0, 12), (7, 2), (8, 3)):
+            row = np.full(K, cc.BIG, np.float32)
+            at = rng.permutation(K)
+            row[at[:lo]] = np.sort(rng.uniform(0.5, 2.0, lo)).astype(np.float32)
+            row[at[lo:lo + n_tie]] = np.float32(3.25)
+            row[at[lo + n_tie:lo + n_tie + 9]] = rng.uniform(4.0, 9.0, 9).astype(np.float32)
+            rows.append((row, lo + n_tie + 9))
+    elif name == "all BIG":
+        rows += [(np.full(K, cc.BIG, np.float32), 0)] * 3
+    elif name.startswith("count "):
+        n = {"0": 0, "Le-1": Le - 1, "Le": Le, "Le+1": Le + 1, "K": K}[name[6:]]
+        rows += [hits(n) for _ in range(4)]
+    elif name in ("K == Le", "K == Le + 1"):
+        K = Le if name == "K == Le" else Le + 1
+        rows += [hits(n) for n in (0, 3, Le - 1, Le, K)]
+    elif name == "hit key equal to BIG":
+        for n_big_hits in (1, 3, 12):
+            row, n = hits(Le - 2)
+            free = np.nonzero(row == cc.BIG)[0][:n_big_hits]
+            rows.append((row, n + free.size))  # hits whose entry is BIG: keys unchanged
+    elif name == "zeros straddle Le":
+        for n_zero in (3, Le, Le + 1, 20):
+            row, n = hits(30)
+            row[np.nonzero(row < cc.BIG)[0][:n_zero]] = 0.0
+            rows.append((row, n))
+    elif name == "keys share their top digits":
+        # Keys one ulp apart share 20 or more top bits: the second and
+        # third digits decide, with ties among them.
+        base = int(np.float32(7.5).view(np.int32))
+        for spread in (8, 600, 5000):
+            k = _f32(base + rng.integers(0, spread, 30))
+            rows.append(hits(30, k))
+    elif name == "denormals and zeros":
+        for n_zero in (0, 4, Le, Le + 1):
+            k = _f32(rng.integers(1, 1 << 20, 30))
+            k[:n_zero] = 0.0
+            rows.append(hits(30, k))
+    elif name == "keys in BIG's bin":
+        lo = BIG_BITS & ~((1 << 20) - 1)
+        for n_giant in (2, 9, 20):
+            k = np.concatenate([rng.uniform(1.0, 5.0, 30 - n_giant).astype(np.float32),
+                                _f32(rng.integers(lo, BIG_BITS, n_giant))])
+            row, n = hits(30, k)
+            miss = np.nonzero(row == cc.BIG)[0]
+            rows.append((row, n + 2))          # and two hits whose entry is BIG
+            assert miss.size >= 2
+    elif name == "random rows":
+        K, Le = 300, 37
+        for n in rng.integers(0, K + 1, 12):
+            row, _ = hits(int(n), np.round(rng.exponential(5.0, n), 1).astype(np.float32))
+            rows.append((row, int(n)))
+    else:
+        raise KeyError(name)
+    key = torch.from_numpy(np.stack([r for r, _ in rows]))
+    count = torch.tensor([c for _, c in rows], dtype=torch.int32)
+    assert key.shape[1] == K and not torch.signbit(key).any()
+    return count, key, Le
+
+
+KEY_CASES = ["ties straddle Le", "all BIG", "count 0", "count Le-1", "count Le", "count Le+1",
+             "count K", "K == Le", "K == Le + 1", "hit key equal to BIG", "zeros straddle Le",
+             "keys share their top digits", "denormals and zeros", "keys in BIG's bin",
+             "random rows"]
+
+
+@pytest.mark.parametrize("case", KEY_CASES)
+def test_selection_model_equals_stable_sort(case):
+    """The kernel's selection (radix threshold, compaction, ties in id order,
+    padding with the lowest-numbered BIG keys) gives _order_hits's lists
+    bitwise: meta and ids exact, nears and cutoff by their bits."""
+    count, key, Le = _key_case(case)
+    got, _ = _lists_model(count, key, Le)
+    want = cc._order_hits(count, key, Le)
+    for field, a, b in zip(("meta", "ids", "nears", "cutoff"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, field
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), field
+
+
+def test_selection_model_takes_every_path():
+    """The crafted cases reach every way the select can stop: among the
+    zeros, among the BIG keys, with the whole bin taken after each digit,
+    and with only some ties of an exact threshold taken."""
+    paths = set()
+    for case in KEY_CASES:
+        count, key, Le = _key_case(case)
+        paths.update(_lists_model(count, key, Le)[1])
+    assert {"zero", "big", "all after 0", "all after 1", "all after 2", "all after 3",
+            "ties after 3"} <= paths, paths
 
 
 @pytest.mark.parametrize("with_tmax", [False, True])
@@ -234,7 +430,7 @@ def test_beam_render_matches_jax(atrium_case):
 def test_beam_none_reads_the_env(monkeypatch, env, want):
     """``beam=None`` reads CHIAROSCURO_BEAM_CULL at each call (``1`` or
     ``true`` turn it on, as cluster_pallas.py:1096); an explicit ``beam``
-    overrides it.  Where on, both queries cull with K3b's sweep."""
+    overrides it.  Where on, both queries cull with K3b."""
     rng = np.random.default_rng(3)
     scene = _soup_scene(rng, 120)
     if env is None:
@@ -242,9 +438,9 @@ def test_beam_none_reads_the_env(monkeypatch, env, want):
     else:
         monkeypatch.setenv("CHIAROSCURO_BEAM_CULL", env)
     calls = []
-    sweep = cc.cull_beam_sweep
-    monkeypatch.setattr(cc, "cull_beam_sweep",
-                        lambda *a, **k: calls.append(a[-1] is not None) or sweep(*a, **k))
+    beam_cull = cc.cull_beam
+    monkeypatch.setattr(cc, "cull_beam", lambda *a, **k: calls.append(
+        k.get("tmax") is not None) or beam_cull(*a, **k))
     cf, af = cc.make_cluster_intersectors(scene, M=16)
     assert cf.beam is af.beam is want
     assert cc.make_cluster_intersectors(scene, M=16, beam=not want)[0].beam is (not want)

@@ -11,7 +11,8 @@ K1/K2, K4/K5 and K6/K7 and its gradients against the CPU's,
 walks) against their plain walk, with a BVH render against the CPU's, and
 the tile-sharded frames and gradients of ``parallel/`` on one NCCL rank and
 on two gloo ranks sharing the card; K3b (the beam cull) against its plain
-sweep and the beam-culled pair against the exact one, and the one-hot
+version, without a key matrix or a sort, and the beam-culled pair against
+the exact one, and the one-hot
 backward's gradients run to run and under TF32 precision settings.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
@@ -503,16 +504,20 @@ def test_k3_checks_alignment_on_card(cuda_device):
         cc.cull_sweep(t["o3"], t["d3"], shifted, t["bmax"])
 
 
-def _beam_inputs(dev, B0_, K, with_tmax, seed):
+def _beam_inputs(dev, B0_, K, with_tmax, seed, twins=False):
     """Seeded boxes in the unit cube and B0_ rows of coherent rays (each row
     a bundle around its own origin and direction, as the integrator's
     sorted wavefronts are): row 0's x and y directions are +-0 (no definite
     axis there), row 1's x directions straddle 0, one lane of row 2 has a
     denormal x direction (1/D is infinite there: NaN products must miss),
-    row 3 starts inside the boxes' span."""
+    row 3 starts inside the boxes' span (entries of +0.0).  With ``twins``
+    the second half of the boxes repeats the first (equal keys: ties at
+    every list width)."""
     rng = np.random.default_rng(seed)
     lo = rng.uniform(0.0, 0.9, (K, 3))
     hi = lo + rng.uniform(0.02, 0.3, (K, 3))
+    if twins:
+        lo[K // 2:2 * (K // 2)], hi[K // 2:2 * (K // 2)] = lo[:K // 2], hi[:K // 2]
     o = rng.uniform(-0.5, 1.5, (B0_, 1, 3)) + rng.normal(scale=0.02, size=(B0_, 128, 3))
     d = rng.normal(size=(B0_, 1, 3)) + rng.normal(scale=0.05, size=(B0_, 128, 3))
     d[0, :, :2] = np.where(rng.uniform(size=(128, 2)) < 0.5, 0.0, -0.0)
@@ -530,9 +535,23 @@ def _beam_inputs(dev, B0_, K, with_tmax, seed):
     return {k: None if v is None else torch.from_numpy(v).to(dev) for k, v in t.items()}
 
 
+def _beam_lists_equal(t, le):
+    """One ``cull_beam`` launch against ``cull_beam_plain`` on the same card
+    tensors: meta and ids exact, nears and cutoff bitwise.  Returns the
+    kernel's lists."""
+    before = cc.LAUNCHES["cull_beam"]
+    got = cc.cull_beam(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES["cull_beam"] == before + 1
+    want = cc.cull_beam_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+    for field, a, b in zip(("meta", "ids", "nears", "cutoff"), got, want):
+        assert a.shape == b.shape and torch.equal(_bits(a), _bits(b)), (le, field)
+    return got
+
+
 BEAM_CASES = {
-    # name: (B0, K, tmax): rows not a multiple of the kernel's 8 a block,
-    # K past one tile of 1,024 boxes in shared memory
+    # name: (B0, K, tmax): one row, rows past one wave, K past a warp's and
+    # a block's share of the boxes
     "one row, one box": (1, 1, False),
     "rows 13, K 150": (13, 150, False),
     "rows 13, K 150, tmax": (13, 150, True),
@@ -544,44 +563,101 @@ BEAM_CASES = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(BEAM_CASES))
 def test_k3b_equals_plain_on_card(case, cuda_device):
-    """K3b (``csrc/cull_beam.cu``) against its plain sweep on the same card
-    tensors: count exact, keys bitwise (+0.0 entries, never -0.0); the
-    lists of ``cull_beam`` exact (nears and cutoff bitwise) at a width that
-    overflows and one that does not; every box K3 lists for a row among
-    them.  Each sweep is one launch."""
+    """K3b (``csrc/cull_beam.cu``) against its plain version on the same
+    card tensors at widths 1, 4, K - 1 and K, one launch each: meta and
+    ids exact, nears and cutoff bitwise.  At Le = K the lists hold every
+    key in order, so every key equals the plain sweep's bitwise (+0.0
+    entries, never -0.0), and every box K3 hits has a key below BIG."""
     B0_, K, with_tmax = BEAM_CASES[case]
     t = _beam_inputs(cuda_device, B0_, K, with_tmax, seed=list(BEAM_CASES).index(case))
+    for le in sorted({1, min(4, K), max(K - 1, 1), K}):
+        meta, ids, nears, _ = _beam_lists_equal(t, le)
     args = (t["o3"], t["d3"], t["bmin"], t["bmax"], t["tmax"])
-    before = cc.LAUNCHES["cull_beam"]
-    count, key = cc.cull_beam_sweep(*args)
-    torch.cuda.synchronize()
-    assert cc.LAUNCHES["cull_beam"] == before + 1
-    p_count, p_key = cc.cull_beam_sweep_plain(*args)
-    assert torch.equal(count, p_count) and torch.equal(_bits(key), _bits(p_key))
-    assert not bool(torch.signbit(key).any())
+    count, key = cc.cull_beam_sweep_plain(*args)
+    assert torch.equal(meta[:, 0], count) and not bool(torch.signbit(nears).any())
+    full = torch.empty_like(key).scatter_(1, ids.long(), nears)
+    assert torch.equal(_bits(full), _bits(key))
     assert bool((count < K).any()) or K == 1
     exact_hit = cc.cull_sweep_plain(*args)[2]
-    assert bool(((key < cc.BIG) | ~exact_hit).all())
-    for le in {1, min(4, K), K}:
-        got = cc.cull_beam(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
-        want = cc.cull_beam_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
-        for field, a, b in zip(("meta", "ids", "nears", "cutoff"), got, want):
-            assert torch.equal(_bits(a), _bits(b)), (le, field)
+    assert bool(((full < cc.BIG) | ~exact_hit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_tmax", [False, True])
+@pytest.mark.parametrize("le", [cc.DEFAULT_LMAX, 9])
+def test_k3b_lists_at_the_default_and_a_small_width_on_card(le, with_tmax, cuda_device):
+    """K = 4,000 boxes whose second half repeats the first, 40 rows: at the
+    default Le = 1,536 (short rows padded with BIG keys) and at Le = 9 (most
+    rows overflow; a twin's key ends the list and repeats past it) the lists
+    equal the plain version's bitwise."""
+    t = _beam_inputs(cuda_device, 40, 4000, with_tmax, seed=11, twins=True)
+    meta, _, nears, _ = _beam_lists_equal(t, le)
+    over = meta[:, 1].bool()
+    assert bool(over.any()) and (le == cc.DEFAULT_LMAX or int(over.sum()) > 10)
+    # Some row's list ends on a key that the next pair repeats.
+    _, p_key = cc.cull_beam_sweep_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], t["tmax"])
+    skey = torch.sort(p_key, dim=1).values
+    assert bool((skey[:, le - 1] == skey[:, le]).any())
+
+
+@pytest.mark.cuda
+def test_k3b_allocates_no_key_matrix_and_sorts_nothing_on_card(monkeypatch, cuda_device):
+    """On the card ``cull_beam`` never reaches a torch sort (each raises
+    here), and the device memory it allocates at its peak is its four
+    outputs: no (B0, K) tensor (B0 = 64, K = 20,000: 5.1 MB of keys)."""
+    t = _beam_inputs(cuda_device, 64, 20_000, True, seed=12)
+    le = cc.DEFAULT_LMAX
+    cc.cull_beam(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])  # the build
+
+    def refuse(*a, **k):
+        raise AssertionError("K3b reached a torch sort on the card")
+
+    for name in ("sort", "argsort", "topk", "msort"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse, raising=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    held = torch.cuda.memory_allocated(cuda_device)
+    before = cc.LAUNCHES["cull_beam"]
+    out = cc.cull_beam(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(cuda_device) - held
+    out_bytes = sum(-(-x.numel() * x.element_size() // 512) * 512 for x in out)
+    assert cc.LAUNCHES["cull_beam"] == before + 1
+    assert grew <= out_bytes < 64 * 20_000 * 4, (grew, out_bytes)
+    monkeypatch.undo()
+    want = cc.cull_beam_plain(t["o3"], t["d3"], t["bmin"], t["bmax"], le, tmax=t["tmax"])
+    for a, b in zip(out, want):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.cuda
 def test_k3b_with_no_boxes_on_card(cuda_device):
-    """K = 0: no launch (as K3, F3), every count zero, keys without a
-    column."""
+    """K = 0: no list width fits (Le must lie in [1, K]), so ``cull_beam``
+    raises before any launch, as it does on the CPU; the plain sweep counts
+    no hit and has no key column."""
     t = _beam_inputs(cuda_device, 5, 3, False, seed=4)
-    junk = torch.full((5,), 7, dtype=torch.int32, device=cuda_device)
-    del junk
     before = cc.LAUNCHES["cull_beam"]
     for tmax in (None, torch.ones((5, 128), device=cuda_device)):
-        count, key = cc.cull_beam_sweep(t["o3"], t["d3"], t["bmin"][:0], t["bmax"][:0], tmax)
-        torch.cuda.synchronize()
+        with pytest.raises(ValueError, match="list width"):
+            cc.cull_beam(t["o3"], t["d3"], t["bmin"][:0], t["bmax"][:0], 1, tmax=tmax)
+        count, key = cc.cull_beam_sweep_plain(t["o3"], t["d3"], t["bmin"][:0],
+                                              t["bmax"][:0], tmax)
         assert torch.equal(count, torch.zeros(5, dtype=torch.int32, device=cuda_device))
         assert key.shape == (5, 0)
+    assert cc.LAUNCHES["cull_beam"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, le", [(60_000, 1536), (30_000, 29_999)])
+def test_k3b_raises_where_a_row_outgrows_shared_memory_on_card(K, le, cuda_device):
+    """A row's K keys (60,000 boxes) or its list (Le + 1 = 30,000 pairs)
+    past a block's shared memory: ValueError before any launch, no
+    fallback."""
+    t = _beam_inputs(cuda_device, 2, K, False, seed=5)
+    before = cc.LAUNCHES["cull_beam"]
+    with pytest.raises(ValueError, match="shared memory"):
+        cc.cull_beam(t["o3"], t["d3"], t["bmin"], t["bmax"], le)
     assert cc.LAUNCHES["cull_beam"] == before
 
 
