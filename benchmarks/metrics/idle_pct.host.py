@@ -1,0 +1,4 @@
+"""The traced window's share with no operation on the card, in percent; moves ``pass_ms.host`` (a frame whose pass the host sets).
+Read by ``device_readers.idle_pct``."""
+
+from benchmarks.metrics.device_readers import idle_pct as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""The traced window's peak device memory, in MiB; moves ``step_ms``.
+Read by ``device_readers.peak_mib``."""
+
+from benchmarks.metrics.device_readers import peak_mib as read  # noqa: F401
