@@ -36,7 +36,9 @@ rows by the JAX package's rule (:func:`_bwd_fetch`, ``_bwd_fetch``
 :464-477): a one-hot matrix product (:func:`onehot_fetch`, whose backward is
 another product) for tables of at most 2,048 triangles, a gather above that;
 ``CHIAROSCURO_BWD_ONEHOT=0/1`` forces either form.  Occlusion is a discrete
-decision: ``any_dense`` takes detached inputs.
+decision: ``any_dense`` takes detached inputs.  While a torch.profiler runs,
+the backward opens the span ``isect.closest_backward`` (on the dense and the
+cluster path alike; ``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ import torch
 
 from chiaroscuro_tpu_torch.geometry.intersect import ClosestHit
 from chiaroscuro_tpu_torch.ops.cuda_build import bind, check_launch
+from chiaroscuro_tpu_torch.utils.profiling import span
 
 FLT_EPS = float(np.finfo(np.float32).eps)
 BIG = 3.0e38
@@ -606,8 +609,8 @@ class _ClosestHit(torch.autograd.Function):
     def backward(ctx, ct_t, _ct_tid, ct_u, ct_v, ct_am):
         o3, d3, tri_rows, attrs, tid, hit = ctx.saved_tensors
         need = ctx.needs_input_grad[2:]
-        h = hit.to(torch.float32)
-        with torch.enable_grad():
+        with span("isect.closest_backward"), torch.enable_grad():
+            h = hit.to(torch.float32)
             xs = [x.detach().requires_grad_(n)
                   for x, n in zip((o3, d3, tri_rows, attrs), need)]
             outs = _recompute_hit(*xs, tid, fetch=ctx.fetch)

@@ -4,8 +4,12 @@
 The reference's only instrumentation is a wall-clock print per render
 (``src/rayTracer.cpp:39,72-73``).  Here:
 
-- :class:`PhaseTimer`: wall-clock accumulation per named phase;
-- :func:`trace`: an opt-in ``torch.profiler`` trace context;
+- :func:`span`: the port's named ranges on the timed path, on only while
+  a ``torch.profiler`` runs (``render.pass``, ``render.to_host``,
+  ``render.accumulate``, ``render.samples``, ``render.raygen``,
+  ``render.bounce`` with its children ``render.compact``,
+  ``render.closest`` and ``render.shadow``, and
+  ``isect.closest_backward``); shading is ``render.bounce``'s self time;
 - :func:`profile_phases`: a measured per-phase breakdown (raygen /
   closest hit / shadow / shade+control) of one rendered frame, used by
   ``Renderer.profile_phases`` and the CLI's ``profile on``.
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -33,48 +37,20 @@ def _synchronize(x) -> None:
         torch.cuda.synchronize(device)
 
 
-class PhaseTimer:
-    """Accumulates wall-clock per named phase; with ``sync`` (a tensor or a
-    device) a phase waits for that device's work before it stops."""
-
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync=None) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync is not None:
-                _synchronize(sync)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name}: {total:.3f}s total, {total / n * 1e3:.1f} ms/call x{n}")
-        return "\n".join(lines)
+# One shared no-op context: while no profiler runs a span costs a flag test
+# and no allocation, where a ``record_function`` costs microseconds.
+_NO_SPAN = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]) -> Iterator[None]:
-    """A ``torch.profiler`` trace (CPU, and CUDA where a card is present)
-    written to ``log_dir`` when it is set; a no-op otherwise."""
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
+def span(name: str):
+    """A named range on the torch.profiler timeline while a profiler runs
+    (``torch.profiler.record_function``, a ``user_annotation`` event on the
+    thread that opened it, on the device trace's clock); a shared no-op
+    context otherwise.  Nothing is kept here: the profiler holds the ranges
+    and writes them with its trace."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def issued_ray_queries(xres: int, yres: int, spp: int, depth: int) -> float:

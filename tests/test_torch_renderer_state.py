@@ -281,11 +281,9 @@ def test_state_files_cross_packages(scenes, tmp_path, writer):
 # ---------------------------------------------------------------------------
 
 
-def test_profile_phases_keys_match_jax(scenes, tmp_path):
+def test_profile_phases_keys_match_jax(scenes):
     """profile_phases returns JAX's keys, every value non-negative and the
-    frame's positive, and the report names each phase; PhaseTimer times a
-    phase, and ``trace`` writes a torch.profiler trace where it is given a
-    directory."""
+    frame's positive, and the report names each phase."""
     from chiaroscuro_tpu.utils import profiling as jprofiling
 
     from chiaroscuro_tpu_torch.utils import profiling
@@ -302,17 +300,6 @@ def test_profile_phases_keys_match_jax(scenes, tmp_path):
     for name in phases:
         assert name in report
     assert profiling.issued_ray_queries(16, 16, 2, 2) == jprofiling.issued_ray_queries(16, 16, 2, 2)
-
-    timer = profiling.PhaseTimer()
-    with timer.phase("render", sync=scene.tri_v0):
-        render_image(scene, _cfg(xres=8, yres=8, samples=1))
-    assert timer.counts == {"render": 1} and timer.totals["render"] > 0
-    assert "render:" in timer.report()
-    with profiling.trace(None):
-        pass
-    with profiling.trace(str(tmp_path / "trace")):
-        render_image(scene, _cfg(xres=8, yres=8, samples=1))
-    assert os.listdir(tmp_path / "trace")
 
 
 def test_cli_profile_on(tmp_path, capsys):
