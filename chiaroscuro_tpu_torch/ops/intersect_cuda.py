@@ -34,11 +34,13 @@ recomputes the winner's t, u, v and attribute row with torch ops.  The JAX
 package has no backward kernel either.  The recompute fetches the winner's
 rows by the JAX package's rule (:func:`_bwd_fetch`, ``_bwd_fetch``
 :464-477): a one-hot matrix product (:func:`onehot_fetch`, whose backward is
-another product) for tables of at most 2,048 triangles, a gather above that;
-``CHIAROSCURO_BWD_ONEHOT=0/1`` forces either form.  Occlusion is a discrete
-decision: ``any_dense`` takes detached inputs.  While a torch.profiler runs,
-the backward opens the span ``isect.closest_backward`` (on the dense and the
-cluster path alike; ``utils/profiling.span``).
+another product) for tables of at most 2,048 triangles, a gather above that
+(:func:`_gather_fetch`, whose backward is a sort-by-id segmented row sum,
+``ops/scatter_cuda.py``); ``CHIAROSCURO_BWD_ONEHOT=0/1`` forces either
+form.  Occlusion is a discrete decision: ``any_dense`` takes detached
+inputs.  While a torch.profiler runs, the backward opens the span
+``isect.closest_backward`` (on the dense and the cluster path alike;
+``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 
 from chiaroscuro_tpu_torch.geometry.intersect import ClosestHit
 from chiaroscuro_tpu_torch.ops.cuda_build import bind, check_launch
+from chiaroscuro_tpu_torch.ops.scatter_cuda import scatter_rows_sum
 from chiaroscuro_tpu_torch.utils.profiling import span
 
 FLT_EPS = float(np.finfo(np.float32).eps)
@@ -556,10 +559,28 @@ def onehot_fetch(mat, idx):
     return _OneHotFetch.apply(mat, flat).reshape(mat.shape[0], *idx.shape)
 
 
+class _GatherFetch(torch.autograd.Function):
+    """``mat (W, T)`` fetched at ``tid`` by indexing the table's rows; the
+    backward sums each row's cotangents by :func:`~chiaroscuro_tpu_torch.
+    ops.scatter_cuda.scatter_rows_sum` (a sort by id and a segmented sum:
+    no atomics, so two runs give bitwise-equal gradients)."""
+
+    @staticmethod
+    def forward(ctx, mat, tid):
+        ctx.save_for_backward(tid)
+        ctx.n_rows = mat.shape[1]
+        return mat.T[tid.long()].permute(2, 0, 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (tid,) = ctx.saved_tensors
+        return scatter_rows_sum(ct.contiguous(), tid, ctx.n_rows).T, None
+
+
 def _gather_fetch(mat, tid):
-    """``mat (W, T)`` fetched at ``tid`` (B0, 128) by indexing the table's
-    rows, (W, B0, 128): the backward is an index-put with accumulation."""
-    return mat.T[tid.long()].permute(2, 0, 1)
+    """``mat (W, T)`` fetched at the int32 ``tid`` (B0, 128) by indexing
+    the table's rows, (W, B0, 128) (:class:`_GatherFetch`)."""
+    return _GatherFetch.apply(mat, tid)
 
 
 def _bwd_fetch(mat, tid):

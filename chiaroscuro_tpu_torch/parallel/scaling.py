@@ -44,7 +44,7 @@ from chiaroscuro_tpu_torch.accel import bvh
 from chiaroscuro_tpu_torch.accel.clusters import build_clusters
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
 from chiaroscuro_tpu_torch.cli import launch_counts
-from chiaroscuro_tpu_torch.ops import bvh_cuda, cluster_cuda, intersect_cuda
+from chiaroscuro_tpu_torch.ops import bvh_cuda, cluster_cuda, intersect_cuda, scatter_cuda
 from chiaroscuro_tpu_torch.parallel.sharding import (
     _pixel_grid,
     make_tile_mesh,
@@ -100,7 +100,8 @@ def _clusters(job, scene):
 
 
 def _reset_launches():
-    for c in (intersect_cuda.LAUNCHES, cluster_cuda.LAUNCHES, bvh_cuda.LAUNCHES):
+    for c in (intersect_cuda.LAUNCHES, cluster_cuda.LAUNCHES, bvh_cuda.LAUNCHES,
+              scatter_cuda.LAUNCHES):
         c.update(dict.fromkeys(c, 0))
 
 
@@ -180,7 +181,7 @@ def _build_libraries(device_type):
     builders = [bvh._native_lib]
     if device_type == "cuda":
         builders += [intersect_cuda.build, cluster_cuda.build_cull, cluster_cuda.build,
-                     bvh_cuda.build]
+                     bvh_cuda.build, scatter_cuda.build]
     with ThreadPoolExecutor(len(builders)) as pool:
         for f in [pool.submit(b) for b in builders]:
             f.result()

@@ -181,7 +181,12 @@ raises, exits non-zero and prints no result line.
    atrium(2_200) 64x36 x 2 spp x k 2 through K4 and through K6;
    (ii) full width: fwd+bwd w.r.t. (kd, ke) on the 262k atrium at
    1280x720 x 1 spp x k 3 with ``checkpoint=True`` — finite, the lights'
-   ke gradients non-zero; (iii) Cornell 512x512 x 16 spp x k 3 fwd+bwd
+   ke gradients non-zero, one S1 sum a bounce (``LAUNCHES["scatter_rows"]``)
+   — the first turn records each sum's cotangent and ids, and S1 (the
+   gather's backward, ``ops/scatter_cuda.py``) is held bitwise against its
+   plain version and a second sum on them and timed beside its bound, its
+   plain version and ATen's ``index_put_(accumulate=True)``, with the ids'
+   share at id 0, longest segment and distinct ids; (iii) Cornell 512x512 x 16 spp x k 3 fwd+bwd
    through K1 (the JAX bench's 500 spp cut to 16).  ms and peak device
    memory are printed, and a torch.profiler breakdown of one 262k fwd+bwd;
    (iv) the backward's row fetch: Cornell 512x512 x 2 spp x k 3 fwd+bwd
@@ -229,20 +234,23 @@ The line before the last is a JSON object of the kernels: for each, the
 launches of its path (K1-K7, K3b, B1/B2: the main-path renders of phases 3-3g,
 counts
 set to 0 before each run and read after it, summed over the runs; X1/X2:
-phase 6), its
+phase 6; S1, ``scatter_rows``: phase 5(ii)'s first 262k step), its
 largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
 CUDA events over a loop of calls, their kernel time by torch.profiler
 printed beside it in phase 4; X2 and its library call: kernel time by
 torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
 ones', K3b's whole cull on the 481k primary wavefront, B1/B2 on the 481k
-primary and shadow wavefronts' sample) and its
+primary and shadow wavefronts' sample; S1 and ATen's ``index_put_`` the mean
+over phase 5(ii)'s three recorded sums) and its
 plain version's on the stated inputs, and the bound: the
 larger of the FP32 operations those inputs need (K1/K2: the tests the
 warp-uniform reject leaves; visits counted by the replay of the per-warp
 exit rule; occlusion lanes tested only up to their first blocker; K3b:
 BEAM_AXIS_OPS a definite axis of a row and BEAM_TAIL_OPS a (row, box),
 against the rays and boxes read and the lists written;
-B1/B2: BOX_OPS a step and MT_OPS a leaf test of the plain walk's) over the
+B1/B2: BOX_OPS a step and MT_OPS a leaf test of the plain walk's; S1: an
+add a lane and column, against the cotangent and ids read and the table
+written once) over the
 card's unfused FP32 rate and the bytes read and written once over its
 memory rate.
 
@@ -1855,6 +1863,58 @@ def fetch_ab(ic, card, scene, pair_of, counts):
     return summary
 
 
+def s1_checks(sc, card, calls):
+    """S1 on the (cotangent, ids, rows) of each gather's backward that
+    phase 5(ii) recorded: the ids' histogram; the sum bitwise equal to its
+    plain version (run on the CPU) and to a second sum; in us a call by
+    CUDA events, in turns, the sum as the backward calls it, its plain
+    version on the card's tensors and ATen's ``index_put_(accumulate=True)``
+    (the gather's backward before S1, on the cotangent's (N, W) view), and
+    apart the sort and the rest (the zeroed table and the kernels).  The
+    bound: the cotangent and the int32 ids read once, the table written
+    once.  Returns one dict a call."""
+    out = []
+    for i, (ct, tid, rows) in enumerate(calls):
+        W, N = ct.shape[0], tid.numel()
+        ids = tid.reshape(-1)
+        lids = ids.long()
+        per_id = torch.bincount(lids)
+        got = sc.scatter_rows_sum(ct, tid, rows)
+        again = sc.scatter_rows_sum(ct, tid, rows)
+        plain = sc.scatter_rows_sum_plain(ct.cpu(), tid.cpu(), rows)
+        if not (torch.equal(bits(got.cpu()), bits(plain)) and torch.equal(bits(got), bits(again))):
+            raise AssertionError(f"S1 on the 262k step's call {i}: not bitwise equal to its "
+                                 "plain version or to a second sum")
+
+        def library():
+            return torch.zeros((rows, W), device=ct.device).index_put_(
+                (lids,), ct.reshape(W, N).T, accumulate=True)
+
+        aten = library()
+        t = time_turns({"plain": lambda: sc.scatter_rows_sum_plain(ct, tid, rows),
+                        "s1": lambda: sc.scatter_rows_sum(ct, tid, rows),
+                        "library": library}, {"plain": 2, "s1": 20, "library": 3})
+        keys, perm = torch.sort(ids, stable=True)
+        sort_us = time_us(lambda: torch.sort(ids, stable=True), 20)
+        rest_us = time_us(lambda: sc._sum_sorted(ct, keys, perm, rows), 20)
+        bnd = bound(N * W, N * W * 4 + N * 4 + rows * W * 4)
+        r = {"err": max_err(got.cpu(), plain), "us": t["s1"][0], "plain_us": t["plain"][0],
+             "library_us": t["library"][0], "bound": bnd}
+        out.append(r)
+        print(f"[s1] {card}: the 262k step's gather backward, call {i} of {len(calls)} in "
+              f"backward order: {N} lanes x {W} into {rows} rows, "
+              f"{100 * float((ids == 0).float().mean()):.4f}% at id 0, longest segment "
+              f"{int(per_id.max())}, {int((per_id > 0).sum())} distinct ids; bitwise equal to "
+              f"its plain version (CPU) and to a second sum; sum {r['us']:.1f} us (turns "
+              f"{t['s1'][1][0]:.1f}, {t['s1'][1][1]:.1f}): sort {sort_us:.1f}, the zeroed table "
+              f"and the kernels {rest_us:.1f}; bound {bnd[0] * 1e3:.1f} us ({bnd[1]}: the "
+              f"cotangent and ids read once, the table written once), the sum at "
+              f"{100 * bnd[0] * 1e3 / r['us']:.1f}% of it; plain {r['plain_us']:.1f} us; ATen's "
+              f"index_put_(accumulate=True) {r['library_us']:.1f} us, |S1 - ATen| "
+              f"{max_err(got, aten)} at entries up to {float(aten.abs().max())}")
+    return out
+
+
 def compare_grads(what, card, cpu, rel=1e-3):
     """Card gradients against the CPU's: per field, sum |d| <= rel x sum
     |g_cpu| (a path that an ulp of a CUDA vs CPU transcendental turned moves
@@ -1928,6 +1988,7 @@ def main() -> int:
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
     from chiaroscuro_tpu_torch.ops import cuda_build
     from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
+    from chiaroscuro_tpu_torch.ops import scatter_cuda
     from chiaroscuro_tpu_torch.render import image_io
     from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
     from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
@@ -1946,7 +2007,7 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    counts = (ic.LAUNCHES, cc.LAUNCHES, bc.LAUNCHES)
+    counts = (ic.LAUNCHES, cc.LAUNCHES, bc.LAUNCHES, scatter_cuda.LAUNCHES)
     main_launches = {k: 0 for c in counts for k in c}   # summed over the CLI runs
 
     def add_launches(launches):
@@ -1966,7 +2027,8 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     t0 = time.perf_counter()
     builders = (ic.build, cc.build_cull, cc.build_cull_beam, cc.build, xc.build, dm.build,
-                bc.build, lambda: cuda_build.build_host_library("bvh_builder"))
+                bc.build, scatter_cuda.build,
+                lambda: cuda_build.build_host_library("bvh_builder"))
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = [f.result()[1] for f in [pool.submit(b) for b in builders]]
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s (one nvcc each, and g++ "
@@ -2869,14 +2931,28 @@ def main() -> int:
 
     # (ii) full width: the 262k atrium, fwd+bwd w.r.t. (kd, ke), checkpointed,
     # on a scene built afresh (phase 2c's was let go before the renders).
+    # The first turn records what each gather's backward hands S1.
     mid = build_scene_tensors(atrium(MID_TRIS), device=dev)
     def mid_pair(s):
         return make_intersectors(s, "cluster", clusters=mca)
 
+    s1_calls = []
+
+    def s1_record(ct, tid, n_rows):
+        s1_calls.append((ct.clone(), tid.clone(), n_rows))
+        return scatter_cuda.scatter_rows_sum(ct, tid, n_rows)
+
     for turn in ("first", "second"):
-        loss, grads, g_launches, seconds, g_mem = grad_run(
-            mid, ATRIUM_CAMERA, ATRIUM_RES, 1, ATRIUM_K, ("kd", "ke"), mid_pair,
-            checkpoint=True, counts=counts)
+        if turn == "first":
+            ic.scatter_rows_sum = s1_record
+        try:
+            loss, grads, g_launches, seconds, g_mem = grad_run(
+                mid, ATRIUM_CAMERA, ATRIUM_RES, 1, ATRIUM_K, ("kd", "ke"), mid_pair,
+                checkpoint=True, counts=counts)
+        finally:
+            ic.scatter_rows_sum = scatter_cuda.scatter_rows_sum
+        if turn == "first":
+            s1_launches = g_launches.get("scatter_rows", 0)
         lights = mid.light_ids.long().cpu()
         lit_ke = float(grads["ke"][lights].abs().sum())
         print(f"[grad] {card}: atrium:{MID_TRIS} 1280x720 x 1 spp x k3 fwd+bwd w.r.t. (kd, ke), "
@@ -2885,12 +2961,16 @@ def main() -> int:
               f"sum|d/dke| over the lights {lit_ke}, sum|d/dkd| {float(grads['kd'].abs().sum())}")
         finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
         if not (finite and lit_ke > 0 and g_launches.get("closest_resident")
-                and g_launches.get("any_resident") and g_launches.get("cull")):
-            raise AssertionError("full-width gradients are not finite and lit, or skipped K3/K4/K5")
+                and g_launches.get("any_resident") and g_launches.get("cull")
+                and g_launches.get("scatter_rows") == ATRIUM_K):
+            raise AssertionError("full-width gradients are not finite and lit, skipped "
+                                 "K3/K4/K5, or ran other than one S1 sum a bounce")
     profile(lambda: grad_run(mid, ATRIUM_CAMERA, ATRIUM_RES, 1, ATRIUM_K, ("kd", "ke"),
                              mid_pair, checkpoint=True),
             f"atrium:{MID_TRIS} 1280x720 x 1 spp x k3 fwd+bwd, checkpoint=True", card)
     del mid
+    s1 = s1_checks(scatter_cuda, card, s1_calls)
+    del s1_calls
     torch.cuda.empty_cache()
 
     # (iii) Cornell 512x512 x 16 spp x k3 fwd+bwd through K1.
@@ -3135,6 +3215,12 @@ def main() -> int:
               "tools/_tpu_dma_min.py:9", x2_err, x2_ms["x2"], x2_t["plain"][0] / 1e3,
               x2_bound, launches=tool_launches["dma_min"], library_ms=x2_ms["library"]),
     ]
+    kernels.append(entry(
+        "scatter_rows", "cuda", "chiaroscuro_tpu_torch/csrc/scatter_rows.cu",
+        "none: XLA's scatter-add, the VJP of chiaroscuro_tpu/ops/cluster_pallas.py:1180",
+        max(r["err"] for r in s1), sum(r["us"] for r in s1) / len(s1) / 1e3,
+        sum(r["plain_us"] for r in s1) / len(s1) / 1e3, max(r["bound"] for r in s1),
+        launches=s1_launches, library_ms=sum(r["library_us"] for r in s1) / len(s1) / 1e3))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")

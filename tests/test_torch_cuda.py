@@ -13,7 +13,10 @@ the tile-sharded frames and gradients of ``parallel/`` on one NCCL rank and
 on two gloo ranks sharing the card; K3b (the beam cull) against its plain
 version, without a key matrix or a sort, and the beam-culled pair against
 the exact one, and the one-hot
-backward's gradients run to run and under TF32 precision settings.
+backward's gradients run to run and under TF32 precision settings, and the
+gather's backward (the sort-by-id segmented row sum) against its plain
+version, run to run, on wrong inputs and through the cluster path's
+gradients.
 
 Card-only (marker ``cuda``): without a CUDA device every test skips inside
 the fixture.  This file imports no jax, so it also runs on a machine
@@ -727,6 +730,108 @@ def test_onehot_backward_deterministic_on_card(cuda_device):
         assert float(g.abs().max()) > 0, k
         for other in runs[1:]:
             assert torch.equal(_bits(other[k]), _bits(g)), k
+
+
+# ---------------------------------------------------------------------------
+# The gather's backward: the sort-by-id segmented row sum.
+# ---------------------------------------------------------------------------
+
+
+def _scatter_case(dev, lanes, rows, width, zero_share=0.6):
+    """A (width, lanes) cotangent and int32 ids, ``zero_share`` of them 0
+    (a wavefront's misses and dead rows), the rest uniform over rows."""
+    rng = np.random.default_rng(lanes + width)
+    tid = rng.integers(0, rows, lanes).astype(np.int32)
+    tid[rng.random(lanes) < zero_share] = 0
+    ct = rng.normal(size=(width, lanes)).astype(np.float32)
+    return torch.from_numpy(ct).to(dev), torch.from_numpy(tid).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes, rows, width", [
+    (921_600, 261_396, 32),     # the 262k inverse-rendering step's wavefront
+    (B0 * 128, 3_000, 9),       # the triangle rows' width
+    (1_001, 50, 40),            # a ragged count; two column groups
+])
+def test_scatter_rows_equals_plain_on_card(lanes, rows, width, cuda_device):
+    """The segmented sum bitwise equal to its plain version (run on the
+    CPU), 60% of the lanes at id 0; two calls bitwise equal, each counted
+    once in ``LAUNCHES["scatter_rows"]``; rows no lane names stay 0."""
+    from chiaroscuro_tpu_torch.ops import scatter_cuda as sc
+
+    ct, tid = _scatter_case(cuda_device, lanes, rows, width)
+    before = sc.LAUNCHES["scatter_rows"]
+    a = sc.scatter_rows_sum(ct, tid, rows)
+    b = sc.scatter_rows_sum(ct, tid, rows)
+    torch.cuda.synchronize()
+    assert sc.LAUNCHES["scatter_rows"] == before + 2
+    assert torch.equal(_bits(a), _bits(b))
+    want = sc.scatter_rows_sum_plain(ct.cpu(), tid.cpu(), rows)
+    assert torch.equal(_bits(a.cpu()), _bits(want))
+    named = torch.bincount(tid.long(), minlength=rows) > 0
+    assert bool(a[named].abs().sum(1).gt(0).all()) and not bool(a[~named].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["ct_dtype", "tid_dtype", "tid_on_cpu", "ct_strided",
+                                   "ct_shape"])
+def test_scatter_rows_raises_on_card(fault, cuda_device):
+    """A wrong dtype, device, layout or shape raises ValueError before any
+    launch."""
+    from chiaroscuro_tpu_torch.ops import scatter_cuda as sc
+
+    ct, tid = _scatter_case(cuda_device, 4_096, 100, 32)
+    if fault == "ct_dtype":
+        ct = ct.double()
+    elif fault == "tid_dtype":
+        tid = tid.long()
+    elif fault == "tid_on_cpu":
+        tid = tid.cpu()
+    elif fault == "ct_strided":
+        ct = ct.T.contiguous().T
+    else:
+        ct = ct[:, 1:].contiguous()
+    before = sc.LAUNCHES["scatter_rows"]
+    with pytest.raises(ValueError):
+        sc.scatter_rows_sum(ct, tid, 100)
+    assert sc.LAUNCHES["scatter_rows"] == before
+
+
+@pytest.mark.cuda
+def test_cluster_backward_deterministic_on_card(cuda_device):
+    """The cluster path's closest-hit backward on the card (atrium(2_200),
+    K3 + K4, the gather's backward the segmented sum, one a bounce): two
+    fwd+bwd runs give bitwise-equal kd/ke gradients, which agree with the
+    CPU's at test_card_gradients_match_cpu's bound (rtol 1e-3, atol 1e-4 x
+    the largest entry)."""
+    from chiaroscuro_tpu_torch.ops import scatter_cuda as sc
+    from chiaroscuro_tpu_torch.render.renderer import render_samples
+    from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA as cam
+
+    def grads(dev):
+        scene = build_scene_tensors(atrium(2_200, seed=5), device=dev)
+        kd = scene.kd.clone().requires_grad_()
+        ke = scene.ke.clone().requires_grad_()
+        s = scene.replace(kd=kd, ke=ke)
+        cf, af = make_intersectors(s, "cluster")
+        xs, ys = _pixels(64, 48, dev)
+        n0 = sc.LAUNCHES["scatter_rows"]
+        img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], 64, 48,
+                             xs, ys, 0, 1, 3, 3, (0.0, 0.0, 0.0), cf, af)
+        (img * torch.linspace(0.5, 1.5, img.numel(), device=dev)
+         .reshape(img.shape)).mean().backward()
+        if dev.type == "cuda":
+            assert sc.LAUNCHES["scatter_rows"] - n0 == 3
+        return {"kd": kd.grad.cpu(), "ke": ke.grad.cpu()}
+
+    runs = [grads(cuda_device), grads(cuda_device)]
+    ref = grads(torch.device("cpu"))
+    for k, g in runs[0].items():
+        assert torch.equal(_bits(runs[1][k]), _bits(g)), k
+        scale = float(ref[k].abs().max())
+        if scale > 0:
+            torch.testing.assert_close(g, ref[k], rtol=1e-3, atol=1e-4 * scale)
+    assert float(ref["ke"].abs().max()) > 0
 
 
 def _x1_inputs(dev):

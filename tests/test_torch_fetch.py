@@ -16,6 +16,15 @@ above it.
 - The one-hot budget forced small: gradients within 1e-6 relative L1 of the
   one-block product (only the order of the chunks' sums moves); two runs
   bitwise equal.
+- The gather's backward, the sort-by-id segmented row sum
+  (``ops/scatter_cuda.py``, its plain version on the CPU), against
+  ``index_put_(accumulate=True)`` (serial on one thread, as this module
+  runs torch): bitwise where no id's lanes cross a 32-item chunk (both sum
+  in lane order from 0.0), else within the reassociation bound of a float32
+  sum, 2 n eps sum|x| for an entry of n terms; and the gradients of the
+  fetch at 2,049 triangles and of the cluster path's gather against JAX's
+  VJPs of the same gathers (XLA's scatter-add) within 1e-5 relative, 1e-6
+  of the largest entry.
 """
 
 import dataclasses
@@ -36,9 +45,11 @@ from chiaroscuro_tpu.scene.builtin import cornell_box as jax_cornell_box
 from chiaroscuro_tpu.scene.scene_arrays import build_scene_arrays
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
 from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
+from chiaroscuro_tpu_torch.ops import scatter_cuda as sc
 from chiaroscuro_tpu_torch.render import integrator
 from chiaroscuro_tpu_torch.render.renderer import render_samples
 from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA
+from chiaroscuro_tpu_torch.scene.synthetic import ATRIUM_CAMERA, atrium
 from chiaroscuro_tpu_torch.scene.obj_loader import Mesh
 from chiaroscuro_tpu_torch.scene.scene_arrays import (
     DATA_FIELDS,
@@ -49,6 +60,7 @@ from chiaroscuro_tpu_torch.scene.scene_arrays import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLT_EPS = float(np.finfo(np.float32).eps)
 RES = (16, 16)
 SPP, DEPTH = 1, 3
 FIELDS = ("kd", "ke", "tri_v0")
@@ -239,7 +251,9 @@ def test_fp32_kept_under_tf32_precision(cornell, monkeypatch):
 @pytest.mark.parametrize("T, onehot", [(2048, True), (2049, False)])
 def test_triangle_rule_at_2048(monkeypatch, T, onehot):
     """One-hot up to 2,048 triangles (JAX's padded width is <= 2,048 exactly
-    then: 512-triangle chunks), gather above; either way the same values."""
+    then: 512-triangle chunks), gather above; either way the same values,
+    and gradients (the product's, or the gather's segmented sum) against
+    the VJP of JAX's ``_bwd_fetch`` at the same size."""
     from chiaroscuro_tpu.ops.intersect_pallas import _tri_chunk_for
 
     padded = -(-T // _tri_chunk_for(T)) * _tri_chunk_for(T)
@@ -252,6 +266,161 @@ def test_triangle_rule_at_2048(monkeypatch, T, onehot):
     out = ic._bwd_fetch(mat, tid)
     assert bool(used) is onehot
     assert torch.equal(out, ic._gather_fetch(mat, tid))
+
+    rng = np.random.default_rng(T)
+    mat, tid, ct = _fetch_case(rng, 32, T, (6, 128))
+    _assert_vjp_matches(ic._bwd_fetch, ip._bwd_fetch, mat, tid, ct)
+
+
+def _fetch_case(rng, W, T, shape, zero_share=0.6):
+    """A (W, T) table, ids with ``zero_share`` of the lanes at id 0 (the
+    misses and dead rows of a wavefront), a (W, *shape) cotangent."""
+    mat = rng.normal(size=(W, T)).astype(np.float32)
+    tid = rng.integers(0, T, shape).astype(np.int32)
+    tid[rng.random(shape) < zero_share] = 0
+    ct = rng.normal(size=(W, *shape)).astype(np.float32)
+    return mat, tid, ct
+
+
+def _assert_vjp_matches(port_fetch, jax_fetch, mat, tid, ct):
+    """The port's fetch gradient against JAX's VJP of ``jax_fetch`` at the
+    same table, ids and cotangent: values bitwise, gradients within rtol
+    1e-5 and 1e-6 of the largest entry."""
+    m = torch.from_numpy(mat).requires_grad_()
+    out = port_fetch(m, torch.from_numpy(tid))
+    got, = torch.autograd.grad(out, m, torch.from_numpy(ct))
+    ref_out, vjp = jax.vjp(lambda x: jax_fetch(x, jnp.asarray(tid)), jnp.asarray(mat))
+    ref, = vjp(jnp.asarray(ct))
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref_out))
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6 * scale)
+
+
+def test_cluster_gather_gradient_matches_jax():
+    """The cluster backward's fetch (``_gather_fetch``, as
+    ``cluster_pallas.py:1180`` gathers ``attrT_orig[:, tid]``) at W 9 and
+    32 over 3,000 rows, 60% of the lanes at id 0: the segmented sum's
+    gradient against JAX's scatter-add VJP."""
+    rng = np.random.default_rng(11)
+    for W in (9, 32):
+        mat, tid, ct = _fetch_case(rng, W, 3000, (40, 128))
+        _assert_vjp_matches(ic._gather_fetch, lambda m, t: m[:, t], mat, tid, ct)
+
+
+def _crosses_a_chunk(tid):
+    """Whether the lanes of some id span two chunks of the sorted order."""
+    keys = np.sort(tid.reshape(-1), kind="stable")
+    starts = np.flatnonzero(np.r_[True, keys[1:] != keys[:-1]])
+    ends = np.r_[starts[1:], keys.size] - 1
+    return bool((starts // sc.CHUNK != ends // sc.CHUNK).any())
+
+
+# (width, lanes, rows, ids) cases of the segmented sum: "uniform" ids,
+# "skewed" (65% at id 0), "inside" (every id's lanes inside one chunk of
+# the sorted order), "span3" (one id on 150 lanes, five chunks and more,
+# amid others), ragged lane counts (not a multiple of the 32-item chunk),
+# and no lanes at all.
+SUM_CASES = {
+    "w9_uniform": (9, 4096, 500, "uniform"),
+    "w32_uniform": (32, 4096, 500, "uniform"),
+    "w9_skewed": (9, 5000, 700, "skewed"),
+    "w32_skewed": (32, 20000, 2000, "skewed"),
+    "w32_inside": (32, 1024, 64, "inside"),
+    "w32_span3": (32, 700, 90, "span3"),
+    "w9_ragged": (9, 1001, 37, "uniform"),
+    "w32_ragged_skewed": (32, 4133, 300, "skewed"),
+    "w32_one_lane": (32, 1, 5, "uniform"),
+    "w9_no_lanes": (9, 0, 5, "uniform"),
+}
+
+
+def _sum_case(name):
+    W, N, T, kind = SUM_CASES[name]
+    rng = np.random.default_rng(len(name) * 1000 + N)
+    tid = rng.integers(0, T, N).astype(np.int32)
+    if kind == "skewed":
+        tid[rng.random(N) < 0.65] = 0
+    elif kind == "inside":
+        tid = rng.permutation(np.repeat(np.arange(T, dtype=np.int32), N // T))
+    elif kind == "span3":
+        tid[rng.permutation(N)[:150]] = 7
+    ct = rng.normal(size=(W, N)).astype(np.float32)
+    return torch.from_numpy(ct), torch.from_numpy(tid), T
+
+
+@pytest.mark.parametrize("name", list(SUM_CASES))
+def test_segmented_sum_equals_index_put(name):
+    """The plain segmented sum (what ``scatter_rows_sum`` takes for CPU
+    tensors, launching nothing) against ``index_put_(accumulate=True)``:
+    bitwise where no id crosses a chunk, else within the float32
+    reassociation bound of each entry's sum."""
+    ct, tid, T = _sum_case(name)
+    W, N = ct.shape[0], tid.numel()
+    before = dict(sc.LAUNCHES)
+    got = sc.scatter_rows_sum(ct, tid, T)
+    assert sc.LAUNCHES == before
+    assert torch.equal(got, sc.scatter_rows_sum_plain(ct, tid, T))
+    want = torch.zeros((T, W)).index_put_((tid.long(),), ct.T, accumulate=True)
+    assert got.shape == (T, W)
+    crosses = _crosses_a_chunk(tid.numpy())
+    kind = SUM_CASES[name][3]
+    if kind in ("skewed", "span3"):
+        assert crosses
+    if kind == "inside":
+        assert not crosses
+    if not crosses:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    terms = torch.bincount(tid.long(), minlength=T).double()[:, None]
+    mag = torch.zeros((T, W), dtype=torch.float64).index_put_(
+        (tid.long(),), ct.T.double().abs(), accumulate=True)
+    gap = (got.double() - want.double()).abs()
+    assert bool((gap <= 2 * terms * FLT_EPS * mag).all())
+    untouched = torch.bincount(tid.long(), minlength=T) == 0
+    assert not bool(got[untouched].any())
+
+
+def test_segmented_sum_takes_levels_down_to_one_chunk():
+    """Two slots a chunk at each level until one chunk holds the level:
+    the grad cell's wavefront takes five levels."""
+    assert sc.level_sizes(0) == [0] and sc.level_sizes(32) == [32]
+    assert sc.level_sizes(33) == [33, 4]
+    assert sc.level_sizes(921_600) == [921_600, 57_600, 3_600, 226, 16]
+
+
+@pytest.mark.parametrize("name", ["w32_skewed", "w9_ragged"])
+def test_segmented_sum_repeats_bitwise(name):
+    """Two runs of the segmented sum give bitwise-equal tables."""
+    ct, tid, T = _sum_case(name)
+    a, b = (sc.scatter_rows_sum(ct, tid, T) for _ in range(2))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["cluster", "dense_2200"])
+def test_gather_backward_runs_the_segmented_sum(monkeypatch, case):
+    """The closest hit's backward on the cluster path, and on the dense
+    path above 2,048 triangles, sums the gathered rows' cotangents by
+    ``scatter_rows_sum``: once a bounce for the attribute table (kd and ke
+    take gradients, the triangle rows none)."""
+    calls = []
+    real = ic.scatter_rows_sum
+    monkeypatch.setattr(ic, "scatter_rows_sum",
+                        lambda ct, tid, n: calls.append(ct.shape[0]) or real(ct, tid, n))
+    scene = build_scene_tensors(atrium(2_200, seed=5), device="cpu")
+    assert scene.n_tris > ic.BWD_ONEHOT_MAX_T
+    kd = scene.kd.clone().requires_grad_()
+    ke = scene.ke.clone().requires_grad_()
+    s = scene.replace(kd=kd, ke=ke)
+    cf, af = make_intersectors(s, "cluster" if case == "cluster" else "dense")
+    ys, xs = torch.meshgrid(torch.arange(8), torch.arange(8), indexing="ij")
+    cam, depth = ATRIUM_CAMERA, 2
+    img = render_samples(s, cam["eye"], cam["center"], cam["up"], cam["yview"], 8, 8,
+                         xs.reshape(-1), ys.reshape(-1), 0, 1, 3, depth, (0.0, 0.0, 0.0),
+                         cf, af)
+    img.mean().backward()
+    assert calls == [ic.ATTR_K] * depth
+    assert float(ke.grad.abs().sum()) > 0
 
 
 def _light_soup(n_lights):
