@@ -15,12 +15,21 @@ reference's kd-tree (``src/kdtree.cpp:110-344``):
   ``miss_link[i]``; the sentinel -1 ends the walk.
 - **Leaf triangles are re-ordered contiguously**, pre-gathered as
   ``tri_v0 / tri_e1 / tri_e2`` so a leaf is a (start, count) range.
+- **Node boxes are padded** by ``accel/clusters.BOX_PAD`` after the build
+  (the boxes the build computes are the JAX package's), so that a box holds every
+  hit Moller-Trumbore reports inside it, rounding included: a box never
+  rejects a hit that lies on its face, or a blocker just short of tmax.
+- **The closest hit is the least (t, original id)** over every hit the test
+  reports, whatever the walk order (the benchmark's reference, K1 and K4
+  alike).  The JAX package keeps the first minimum in walk order over tight
+  boxes (ROADMAP section 3, deliberate deviations).
 
 :func:`bvh_closest` / :func:`bvh_any` are the **plain versions** of the
-walk: the JAX package's lock-step wavefront loop (``lax.while_loop``), op
-for op, with the loop's condition read back to the host each step.  On the
-card the walk is the kernels B1/B2 (``ops/bvh_cuda.py``, one thread per
-ray), which :func:`make_bvh_intersectors` launches for CUDA tensors.
+walk: the JAX package's lock-step wavefront loop (``lax.while_loop``), with
+the two changes above and the loop's condition read back to the host each
+step.  On the card the walk is the kernels B1/B2 (``ops/bvh_cuda.py``, one
+thread per ray), which :func:`make_bvh_intersectors` launches for CUDA
+tensors.
 
 Gradients: the walk's t, u and v come from the BVH's detached copies of the
 vertices, so no geometry gradient can flow through a hit (in the JAX
@@ -43,11 +52,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from chiaroscuro_tpu_torch.accel.clusters import BOX_PAD
 from chiaroscuro_tpu_torch.geometry.intersect import AnyFn, ClosestFn, ClosestHit
 from chiaroscuro_tpu_torch.ops.intersect_cuda import _mt_core
 from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
 
 SENTINEL = -1
+_NO_ID = torch.iinfo(torch.int32).max   # above every triangle id (ids stay under 2^24)
 
 
 @dataclasses.dataclass
@@ -57,6 +68,7 @@ class BVHArrays:
     tensors through the views below."""
 
     nodes: torch.Tensor       # (N, 8) f32: bmin.xyz | miss_link bits | bmax.xyz | leaf_count bits
+    #                           (boxes padded by BOX_PAD)
     leaf_start: torch.Tensor  # (N,) i32 start into tri_order, -1 for internal
     tri_order: torch.Tensor   # (T_padded,) i32 permutation of triangle ids
     # Pre-gathered, reordered triangle geometry (leaf-contiguous), 48 bytes
@@ -305,7 +317,8 @@ def build_bvh(
     scene: SceneTensors, leaf_size: int = 8, native: bool = True
 ) -> BVHArrays:
     """The scene's BVH, built on the host and placed on the scene's
-    device.  ``native`` tries the C++ builder first."""
+    device.  ``native`` tries the C++ builder first.  The node boxes are
+    the build's, padded by ``BOX_PAD`` here (module docstring)."""
     check_no_vertex_grad(scene)
     v0, v1, v2 = (getattr(scene, f).cpu().numpy() for f in ("tri_v0", "tri_v1", "tri_v2"))
     if native:
@@ -333,7 +346,8 @@ def build_bvh(
     ov2[len(order):] = 0
 
     nodes = np.zeros((len(bmin), 8), np.float32)
-    nodes[:, 0:3], nodes[:, 4:7] = bmin, bmax
+    pad = np.float32(BOX_PAD)
+    nodes[:, 0:3], nodes[:, 4:7] = bmin - pad, bmax + pad
     nodes[:, 3], nodes[:, 7] = miss.view(np.float32), lc.view(np.float32)
     tris = np.zeros((len(order_p), 12), np.float32)
     tris[:, 0:3], tris[:, 4:7], tris[:, 8:11] = ov0, ov1 - ov0, ov2 - ov0
@@ -409,8 +423,9 @@ def _mark_seen(seen, bvh, nodes, active, slots, n_tested):
 def bvh_closest(bvh: BVHArrays, origins, dirs, max_iters: int = 0, counts: bool = False,
                 seen=None):
     """Plain closest hit of (R, 3) ray rows: (hit, t, tid, u, v), t = inf
-    on a miss; ties go to walk order (a hit must beat the running best
-    strictly; inside a leaf the first minimum in slot order wins).  With
+    on a miss; the least (t, original id) of the hits (a hit replaces the
+    running best where its t is smaller, or equal with a smaller id; inside
+    a leaf the least (t, id) of the slots that do).  With
     ``counts`` also each ray's (steps, leaf triangle tests), int32; with
     ``seen`` (:func:`_mark_seen`) the nodes and slots the walks touch:
     what B1's bound counts."""
@@ -440,13 +455,15 @@ def bvh_closest(bvh: BVHArrays, origins, dirs, max_iters: int = 0, counts: bool 
         leaf_count = torch.where(is_leaf, count, 0)
 
         slots, ok, t, u, v = _leaf_test(bvh, origins, dirs, bvh.leaf_start[ni], leaf_count)
-        ok = ok & (t < t_best[:, None])
+        ids = bvh.tri_order[slots]
+        tb = t_best[:, None]
+        ok = ok & ((t < tb) | ((t == tb) & (ids < tid[:, None])))
         t = torch.where(ok, t, float("inf"))
-        best = torch.argmin(t, dim=1)
-        lt = t[rows, best]
+        lt = t.amin(dim=1)
+        best = torch.argmin(torch.where(ok & (t == lt[:, None]), ids, _NO_ID), dim=1)
         better = torch.isfinite(lt) & is_leaf
         t_best = torch.where(better, lt, t_best)
-        tid = torch.where(better, bvh.tri_order[slots[rows, best]], tid)
+        tid = torch.where(better, ids[rows, best], tid)
         uu = torch.where(better, u[rows, best], uu)
         vv = torch.where(better, v[rows, best], vv)
 

@@ -8,15 +8,17 @@
 // launches some forty small ops on every step.
 //
 // The walk (accel/bvh.py): node = 0; at node i the ray's slab test against
-// the node's box, with tmax = the running best t (B1) or the ray's tmax
-// (B2); on a box hit at a leaf, Moller-Trumbore (mt_core.cuh) against the
-// leaf's count triangles in slot order; on a box hit at an internal node
-// step to i + 1, otherwise jump to miss_link[i]; stop at -1 or after
-// `limit` steps (4 * n_nodes + 8).
-//   B1: a hit must beat the running best strictly, so ties go to walk order
-//       (the first minimum in slot order inside a leaf, the earlier leaf
-//       across leaves), as the plain version's argmin and strict update do.
-//       Outputs hit (t finite), t (inf on a miss), the original id
+// the node's box (padded by BOX_PAD at the build, so that it holds every
+// hit the test below reports), with tmax = the running best t (B1) or the
+// ray's tmax (B2); on a box hit at a leaf, Moller-Trumbore (mt_core.cuh)
+// against the leaf's count triangles in slot order; on a box hit at an
+// internal node step to i + 1, otherwise jump to miss_link[i]; stop at -1
+// or after `limit` steps (4 * n_nodes + 8).
+//   B1: a hit replaces the running best where its t is smaller, or equal
+//       with a smaller original id, so the answer is the least (t, id) of
+//       the hits, whatever the walk order (the plain version's rule, and
+//       K1's and K4's).  The ids are read only on an exact tie.  Outputs
+//       hit (t finite), t (inf on a miss), the original id
 //       (tri_order[slot]), u, v.
 //   B2: stops at the first blocker: a hit at t < tmax whose original id is
 //       not the ray's exclude id.  Output occluded.
@@ -197,7 +199,7 @@ struct AnyArgs {
   int* tests;
 };
 
-// B1's ray: the running best hit, by slot.
+// B1's ray: the running best hit, by slot (its id read at a tie and at the end).
 struct Closest {
   using Args = ClosestArgs;
   float bt, bu, bv;
@@ -212,7 +214,9 @@ struct Closest {
   __device__ __forceinline__ bool done() const { return false; }
   __device__ __forceinline__ void test(const Bvh& b, const mt::Ray& r, int s) {
     float t, u, v;
-    if (tri_test(r, b.tris, s, t, u, v) && t < bt) {
+    if (tri_test(r, b.tris, s, t, u, v) &&
+        (t < bt || (t == bt && slot >= 0 &&
+                    __ldg(b.tri_order + s) < __ldg(b.tri_order + slot)))) {
       bt = t;
       bu = u;
       bv = v;

@@ -2,7 +2,7 @@
 
 - B1 ``closest_bvh`` replaces ``chiaroscuro_tpu/accel/bvh.py::bvh_closest``
   (a ``lax.while_loop`` over the ray wavefront): the closest hit of each
-  (R, 3) ray row, ties to walk order.
+  (R, 3) ray row, the least (t, original id) (``accel/bvh.py``).
 - B2 ``any_bvh`` replaces ``::bvh_any``: occluded iff some triangle whose
   original id is not the ray's exclude id hits at t < tmax.
 
@@ -13,8 +13,11 @@ leaves they hold together.  Their plain versions are the lock-step loops
 :func:`~chiaroscuro_tpu_torch.accel.bvh.bvh_closest` /
 :func:`~chiaroscuro_tpu_torch.accel.bvh.bvh_any`.  Each wrapper takes the
 plain version only for CPU tensors; for CUDA tensors it launches its kernel
-or raises.  ``LAUNCHES`` counts kernel launches.  The kernels read the
-packed tables that ``build_bvh`` makes, ``BVHArrays.nodes`` and ``.tris``.
+or raises.  ``LAUNCHES`` counts kernel launches.  Inside
+``utils/profiling.counting()`` each launch (each plain walk on the CPU)
+runs with counts and records its rays, steps and leaf tests there.  The
+kernels read the packed tables that ``build_bvh`` makes, ``BVHArrays.nodes``
+and ``.tris``.
 The walk is a discrete search over detached geometry: the wrappers take no
 gradient (``accel/bvh.py``).
 """
@@ -29,6 +32,7 @@ import torch
 from chiaroscuro_tpu_torch.accel.bvh import BVHArrays, bvh_any, bvh_closest, step_limit
 from chiaroscuro_tpu_torch.ops.cuda_build import bind, check_launch
 from chiaroscuro_tpu_torch.ops.intersect_cuda import _check
+from chiaroscuro_tpu_torch.utils.profiling import walk_counts
 
 # Kernel launch counts, by kernel.  Incremented only where a wrapper
 # launches its kernel; the plain versions never count.
@@ -78,11 +82,33 @@ def _tables(bvh):
             bvh.tri_order.data_ptr())
 
 
+def _counted(kernel, out, counts, sink):
+    """A walk's outputs ``out``, which end in their (steps, tests) where
+    ``counts`` or ``sink`` asked for them: inside an open ``counting()``
+    (``sink``) one entry is recorded, where the walk had rays; the counts
+    are handed back only where the caller asked (``counts``)."""
+    if sink is None:
+        return out
+    *res, (steps, tests) = out
+    if steps.numel():
+        sink.append({"kernel": kernel, "rays": steps.numel(), "steps": int(steps.sum()),
+                     "tests": int(tests.sum())})
+    if counts:
+        return out
+    return res[0] if kernel == "bvh_any" else tuple(res)
+
+
 def closest_bvh(bvh: BVHArrays, origins, dirs, counts: bool = False):
     """B1: (hit, t, tid, u, v) of (R, 3) f32 ray rows, t = inf on a miss;
     with ``counts`` also each ray's (steps, leaf triangle tests).  The
     kernel for CUDA tensors (no launch for R = 0), the plain walk for CPU
     tensors."""
+    sink = walk_counts()
+    out = _closest(bvh, origins, dirs, counts or sink is not None)
+    return _counted("bvh_closest", out, counts, sink)
+
+
+def _closest(bvh, origins, dirs, counts):
     origins, dirs = origins.detach().contiguous(), dirs.detach().contiguous()
     if origins.device.type == "cpu":
         return bvh_closest(bvh, origins, dirs, counts=counts)
@@ -114,6 +140,12 @@ def any_bvh(bvh: BVHArrays, origins, dirs, tmax, exclude_id, counts: bool = Fals
     original id is not ``exclude_id`` (R,) int, at t < ``tmax`` (R,) f32;
     with ``counts`` ``(occluded, (steps, tests))``.  The kernel for CUDA
     tensors (no launch for R = 0), the plain walk for CPU tensors."""
+    sink = walk_counts()
+    out = _any(bvh, origins, dirs, tmax, exclude_id, counts or sink is not None)
+    return _counted("bvh_any", out, counts, sink)
+
+
+def _any(bvh, origins, dirs, tmax, exclude_id, counts):
     origins, dirs = origins.detach().contiguous(), dirs.detach().contiguous()
     tmax = tmax.detach()
     if origins.device.type == "cpu":

@@ -483,10 +483,13 @@ def trace_paths_planar(
                     tid = res.tid.long()
                     hit = r2(res.hit) & active
                     u_, v_ = res.u, res.v
+                    # The planar path's form, v0 + e1 for v1: the same bits
+                    # where v1 - v0 is exact, and the reference's elsewhere.
+                    v0 = scene.tri_v0[tid]
                     point = P.to_planar(
-                        scene.tri_v0[tid] * (1.0 - u_ - v_)[:, None]
-                        + scene.tri_v1[tid] * u_[:, None]
-                        + scene.tri_v2[tid] * v_[:, None],
+                        v0 * (1.0 - u_ - v_)[:, None]
+                        + (v0 + (scene.tri_v1[tid] - v0)) * u_[:, None]
+                        + (v0 + (scene.tri_v2[tid] - v0)) * v_[:, None],
                         B,
                     )
                     normal = P.to_planar(scene.normal[tid], B)

@@ -10,6 +10,11 @@ The reference's only instrumentation is a wall-clock print per render
   ``render.bounce`` with its children ``render.compact``,
   ``render.closest`` and ``render.shadow``, and
   ``isect.closest_backward``); shading is ``render.bounce``'s self time;
+- :func:`counting`: the BVH walks' work counters, on only inside the
+  context: each B1/B2 launch (``ops/bvh_cuda.py``; the plain walk on CPU
+  tensors) then runs with counts and records its rays, box tests (steps)
+  and leaf triangle tests.  The launches sit inside ``render.closest`` and
+  ``render.shadow``;
 - :func:`profile_phases`: a measured per-phase breakdown (raygen /
   closest hit / shadow / shade+control) of one rendered frame, used by
   ``Renderer.profile_phases`` and the CLI's ``profile on``.
@@ -24,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -51,6 +56,32 @@ def span(name: str):
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+# The open counting() context's entries; None while none is open.
+_WALK_COUNTS: Optional[List[dict]] = None
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the BVH walks' work while the block runs: each B1/B2 launch
+    runs with ``counts=True`` and appends one entry to the yielded list,
+    ``{"kernel": "bvh_closest" | "bvh_any", "rays": R, "steps": the sum of
+    its box tests, "tests": the sum of its leaf triangle tests}`` (the sums
+    read back to the host, so each launch waits for its kernel).  With no
+    context open the launches request no counts and nothing is kept."""
+    global _WALK_COUNTS
+    outer, entries = _WALK_COUNTS, []
+    _WALK_COUNTS = entries
+    try:
+        yield entries
+    finally:
+        _WALK_COUNTS = outer
+
+
+def walk_counts() -> Optional[List[dict]]:
+    """The open :func:`counting` context's list of entries, else None."""
+    return _WALK_COUNTS
 
 
 def issued_ray_queries(xres: int, yres: int, spp: int, depth: int) -> float:

@@ -11,12 +11,22 @@ Tolerances, each with its reason:
 - Builds: array for array equal (the same numpy or C++ code on the same
   float32 input).
 - Walk against JAX's ``bvh_closest`` / ``bvh_any``: hit and occlusion flags
-  exact, ids equal or t-ties (rtol 1e-6), t within rtol 2e-6 and u, v
-  within 1e-5 absolute where ids agree.  Not bitwise: XLA contracts the
-  Moller-Trumbore products into FMAs on the CPU, torch rounds each op
-  (found: t within 2.4e-7 relative; u and v within 1.7e-7 on Cornell and
-  3.4e-6 on atrium(2_200), whose ids agree on all but one t-tie).
-- Walk against the brute oracle: tests/test_bvh.py's own bounds.
+  and ids equal, except where the port's answer is the least (t, id) hit
+  (or the occlusion) that :func:`_brute` reports; t within rtol 2e-6 and
+  u, v within 1e-5 absolute where ids agree.  The port pads its boxes and
+  takes the least (t, id) (``accel/bvh.py``); the JAX package walks tight
+  boxes and keeps walk order, so it loses hits on a box's face, blockers
+  just short of tmax and ties to a smaller id, and its on-plane axis rays
+  meet NaN at the triangles' planes (ROADMAP section 3).  Not bitwise
+  elsewhere: XLA contracts the Moller-Trumbore products into FMAs on the
+  CPU, torch rounds each op (found: t within 2.4e-7 relative; u and v
+  within 1.7e-7 on Cornell and 3.4e-6 on atrium(2_200)).
+- Walk against :func:`_brute` (every triangle, the walk's Moller-Trumbore,
+  the least (t, id)) and the benchmark's reference
+  (``benchmarks/reference/accel.py``): exact, on the cases built to meet
+  each rule (ties, a box's face, a blocker at tmax).
+- Walk against the brute oracle of ``geometry/intersect.py``:
+  tests/test_bvh.py's own bounds.
 - Renders: the render bound of ROADMAP section 3 (mean |d| <= 1e-4 x mean
   radiance, at most 0.5% of pixels outside rtol 1e-3).
 - Gradients w.r.t. (kd, ke) against ``jax.grad`` through JAX's BVH:
@@ -41,14 +51,21 @@ from chiaroscuro_tpu.scene.config import RenderConfig as JaxRenderConfig
 from chiaroscuro_tpu.scene.scene_arrays import build_scene_arrays
 from chiaroscuro_tpu.scene.scene_arrays import load_scene as jax_load_scene
 from chiaroscuro_tpu.scene.synthetic import atrium as jax_atrium
+from benchmarks.drivers import frame
+from benchmarks.harness import program
+from benchmarks.reference import accel as ref_accel
+from benchmarks.reference import scene as ref_scene
+from benchmarks.scenes.mesh import Mesh
 from chiaroscuro_tpu_torch import cli
 from chiaroscuro_tpu_torch.accel import bvh
+from chiaroscuro_tpu_torch.accel.clusters import BOX_PAD
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
 from chiaroscuro_tpu_torch.geometry.intersect import (
     intersect_any_bruteforce,
     intersect_closest_bruteforce,
 )
 from chiaroscuro_tpu_torch.ops import bvh_cuda
+from chiaroscuro_tpu_torch.ops.intersect_cuda import _mt_core
 from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
 from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
@@ -108,14 +125,23 @@ def built(request):
 @pytest.mark.parametrize("native", [True, False])
 def test_build_matches_jax(name, native):
     """The port's build equals the JAX package's, array for array, through
-    the C++ builder and through the numpy one."""
+    the C++ builder and through the numpy one: the build's own boxes
+    before the pad, then the stored boxes are those less and plus
+    ``BOX_PAD`` in float32."""
     make, leaf = SCENES[name]
     sa = make()
     ref = jbvh.build_bvh(sa, leaf_size=leaf, native=native)
-    got = bvh.build_bvh(_port_scene(sa), leaf_size=leaf, native=native)
+    scene = _port_scene(sa)
+    got = bvh.build_bvh(scene, leaf_size=leaf, native=native)
     assert got.builder == ("native" if native else "numpy")
     assert (got.n_nodes, got.leaf_size) == (ref.n_nodes, ref.leaf_size)
-    for f in BUILD_FIELDS:
+    v = [getattr(scene, f).numpy() for f in ("tri_v0", "tri_v1", "tri_v2")]
+    built = bvh._build_host_native(*v, leaf) if native else bvh._build_host(*v, leaf)
+    pad = np.float32(BOX_PAD)
+    for f, b, sign in (("bbox_min", built[0], -1), ("bbox_max", built[1], 1)):
+        np.testing.assert_array_equal(b, np.asarray(getattr(ref, f)), err_msg=f)
+        np.testing.assert_array_equal(getattr(got, f).numpy(), b + sign * pad, err_msg=f)
+    for f in BUILD_FIELDS[2:]:
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
                                       err_msg=f)
 
@@ -193,29 +219,55 @@ def _rays(sa, seed, n=512, on_plane=True):
     return o, d
 
 
+def _brute(scene, o, d, tmax=None, excl=None):
+    """Every triangle against every ray with the walk's Moller-Trumbore
+    (``_mt_core``, the kernels' arithmetic): (hit, t, tid) of the least
+    (t, id) hit, t = inf and tid 0 on a miss; with ``tmax`` and ``excl``
+    the occlusion by a triangle other than ``excl`` at t < tmax."""
+    def comps(x):
+        return tuple(x[..., a] for a in range(3))
+
+    v0 = scene.tri_v0
+    ok, t, _, _ = _mt_core(comps(o[None]), comps(d[None]), comps(v0[:, None]),
+                           comps((scene.tri_v1 - v0)[:, None]),
+                           comps((scene.tri_v2 - v0)[:, None]))       # (T, R)
+    ids = torch.arange(v0.shape[0], dtype=torch.int32)[:, None]
+    if tmax is not None:
+        return (ok & (t < tmax[None]) & (ids != excl[None])).any(dim=0)
+    t = torch.where(ok, t, float("inf"))
+    tmin = t.amin(dim=0)
+    tid = torch.where(t == tmin[None], ids, v0.shape[0]).amin(dim=0)
+    hit = torch.isfinite(tmin)
+    return hit, tmin, torch.where(hit, tid, 0)
+
+
 def test_closest_matches_jax(built):
     """Plain ``bvh_closest`` against JAX's, on 512 seeded rays plus the
-    axis-aligned on-plane ones, under the module's tolerance (found: see
-    the module docstring)."""
-    _, sa, _, jb, pb = built
+    axis-aligned on-plane ones, under the module's tolerance: where the two
+    differ in the hit or the id, the port's hit is :func:`_brute`'s least
+    (t, id), bit for bit (found: the on-plane rays, which meet NaN at the
+    triangles' planes in JAX's tight boxes, and the ties)."""
+    _, sa, scene, jb, pb = built
     o, d = _rays(sa, 11)
     ref = [np.asarray(x) for x in jbvh.bvh_closest(jb, jnp.asarray(o), jnp.asarray(d))]
     got = [x.numpy() for x in bvh.bvh_closest(pb, torch.from_numpy(o), torch.from_numpy(d))]
-    np.testing.assert_array_equal(got[0], ref[0])
-    hit = ref[0]
+    oh, ot, otid = (x.numpy() for x in _brute(scene, torch.from_numpy(o), torch.from_numpy(d)))
+    differ = (got[0] != ref[0]) | (got[0] & (got[2] != ref[2]))
+    np.testing.assert_array_equal(got[0][differ], oh[differ])
+    np.testing.assert_array_equal(got[1][differ].view(np.int32), ot[differ].view(np.int32))
+    np.testing.assert_array_equal(got[2][differ], otid[differ])
+    hit = ref[0] & ~differ
     assert 0.2 < hit.mean() < 0.95
-    assert np.isinf(got[1][~hit]).all()
-    gt, rt = got[1][hit], ref[1][hit]
-    agree = got[2][hit] == ref[2][hit]
-    assert (agree | np.isclose(gt, rt, rtol=1e-6)).all()
-    np.testing.assert_allclose(gt, rt, rtol=2e-6, atol=0.0)
+    assert np.isinf(got[1][~got[0]]).all()
+    np.testing.assert_allclose(got[1][hit], ref[1][hit], rtol=2e-6, atol=0.0)
     for k in (3, 4):
-        np.testing.assert_allclose(got[k][hit][agree], ref[k][hit][agree], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got[k][hit], ref[k][hit], rtol=0, atol=1e-5)
 
 
 def test_any_matches_jax(built):
     """Plain ``bvh_any`` against JAX's on the same rays, tmax seeded across
-    the scene's span, exclude ids seeded among the triangles: exact."""
+    the scene's span, exclude ids seeded among the triangles: equal, except
+    where the port's occlusion is :func:`_brute`'s (the on-plane rays)."""
     _, sa, scene, jb, pb = built
     o, d = _rays(sa, 12)
     d = d / np.linalg.norm(d, axis=-1, keepdims=True)
@@ -225,8 +277,11 @@ def test_any_matches_jax(built):
     excl = rng.integers(0, scene.n_tris, len(o)).astype(np.int32)
     ref = np.asarray(jbvh.bvh_any(jb, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax),
                                   jnp.asarray(excl)))
-    got = bvh.bvh_any(pb, *(torch.from_numpy(x) for x in (o, d, tmax, excl)))
-    np.testing.assert_array_equal(got.numpy(), ref)
+    args = [torch.from_numpy(x) for x in (o, d, tmax, excl)]
+    got = bvh.bvh_any(pb, *args).numpy()
+    differ = got != ref
+    np.testing.assert_array_equal(got[differ], _brute(scene, *args).numpy()[differ])
+    assert differ.mean() < 0.05
     assert 0.05 < ref.mean() < 0.95
 
 
@@ -280,6 +335,161 @@ def test_walk_matches_brute_oracle(built):
     oh, ot, *_ = intersect_closest_bruteforce(oc, cent - oc, *tv)
     assert torch.equal(bh, oh)
     np.testing.assert_allclose(bt.numpy(), ot.numpy(), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The reference's semantics: padded boxes and the least (t, id).
+# ---------------------------------------------------------------------------
+
+
+def _mesh(name, tris, ke=0.0):
+    """A benchmark ``Mesh`` of (F, 3, 3) triangle corners, flat normals."""
+    tris = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+    n = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+    n = (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+    F = len(tris)
+    return Mesh(name, tris.reshape(-1, 3), np.repeat(n, 3, axis=0), np.zeros((3 * F, 2), np.float32),
+                np.arange(3 * F, dtype=np.int32).reshape(F, 3), np.full(3, 0.5, np.float32),
+                np.full(3, ke, np.float32), np.zeros(3, np.float32), np.zeros(3, np.float32), 1.0)
+
+
+def _scenes(meshes):
+    """The port's scene and the benchmark reference's exact queries
+    (``benchmarks/reference/accel.py``) of the same meshes, ids alike."""
+    scene, _ = program.port_scene(meshes, {}, "cpu")
+    rs = ref_scene.flatten(meshes, {}, "cpu")
+    assert torch.equal(scene.tri_v0, rs.v0) and torch.equal(scene.tri_v2, rs.v2)
+    return scene, ref_accel.Groups(rs)
+
+
+def _tight(pb, scene):
+    """``pb`` with the build's own boxes, unpadded: the walk as it stood
+    before the pad."""
+    v = [getattr(scene, f).numpy() for f in ("tri_v0", "tri_v1", "tri_v2")]
+    bmin, bmax, *_ = bvh._build_host(*v, pb.leaf_size)
+    nodes = pb.nodes.clone()
+    nodes[:, 0:3], nodes[:, 4:7] = torch.from_numpy(bmin), torch.from_numpy(bmax)
+    return dataclasses.replace(pb, nodes=nodes)
+
+
+def _closest_is_least(pb, scene, groups, o, d):
+    """The plain walk's closest hits equal :func:`_brute`'s and the
+    reference's least (t, id) hits, bit for bit; returns its (hit, t, tid)."""
+    hit, t, tid, _, _ = bvh.bvh_closest(pb, o, d)
+    bh, bt, btid = _brute(scene, o, d)
+    rh, rt, rtid, _, _ = groups.closest(o, d)
+    for want_h, want_t, want_id in ((bh, bt, btid), (rh, rt, rtid)):
+        assert torch.equal(hit, want_h)
+        assert torch.equal(tid[hit].long(), want_id[hit].long())
+        assert torch.equal(t[hit].view(torch.int32), want_t[hit].view(torch.int32))
+    return hit, t, tid
+
+
+def test_tie_goes_to_the_least_id_whatever_the_walk_order():
+    """Two coplanar duplicate triangles (ids 1 and 2) in one leaf whose
+    slots are swapped, so that the larger id is walked first: every ray
+    through them ties exactly, and the walk answers the smaller id, as the
+    brute least (t, id) and the reference do."""
+    tri = [(0.5, 0.25, 1.0), (3.25, 0.5, 1.0), (0.75, 2.5, 1.0)]
+    far = [(6.0, 6.0, 3.0), (7.0, 6.0, 3.0), (6.0, 7.0, 3.0)]
+    scene, groups = _scenes([_mesh("m", [far, tri, tri])])
+    pb = bvh.build_bvh(scene, leaf_size=8)
+    order = pb.tri_order.clone()
+    s1, s2 = (int(torch.nonzero(order == i)[0]) for i in (1, 2))
+    perm = torch.arange(order.numel())
+    perm[s1], perm[s2] = s2, s1
+    pb = dataclasses.replace(pb, tri_order=order[perm].contiguous(),
+                             tris=pb.tris[perm].contiguous())
+    assert int(pb.tri_order[min(s1, s2)]) == 2            # the larger id first
+    rng = np.random.default_rng(5)
+    n = 64
+    target = np.stack([rng.uniform(0.9, 1.6, n), rng.uniform(0.6, 1.2, n), np.ones(n)], 1)
+    o = torch.from_numpy(np.stack([rng.uniform(-1, 4, n), rng.uniform(-1, 4, n),
+                                   rng.uniform(3, 5, n)], 1).astype(np.float32))
+    d = torch.from_numpy(target.astype(np.float32)) - o
+    hit, _, tid = _closest_is_least(pb, scene, groups, o, d)
+    assert bool(hit.all()) and bool((tid == 1).all())
+
+
+def test_hit_on_a_shared_edge_on_a_leaf_box_face():
+    """Two triangles share the edge x = 1, each its own leaf (leaf size 1),
+    the edge on both leaves' box faces; the one with the larger id is walked
+    first.  Rays through the edge hit both at one t: with the build's
+    tight boxes the second leaf's entry reaches the best t and the walk
+    prunes it, keeping the larger id; padded, the walk answers the least
+    (t, id), as the brute search and the reference do."""
+    right = [(1.0, 0.0, 0.0), (2.0, 0.0, 0.0), (1.0, 1.0, 0.0)]
+    left = [(0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (1.0, 1.0, 0.0)]
+    scene, groups = _scenes([_mesh("m", [right, left])])
+    pb = bvh.build_bvh(scene, leaf_size=1)
+    first = int(pb.tri_order[int(pb.leaf_start[1])])
+    assert first == 1                                    # the left triangle, the larger id
+    ys = np.linspace(0.0625, 0.9375, 15, dtype=np.float32)
+    o = torch.from_numpy(np.stack([np.full_like(ys, 0.5), ys, np.ones_like(ys)], 1))
+    d = torch.tensor([[0.5, 0.0, -1.0]]).expand(len(ys), 3).contiguous()
+    hit, t, tid = _closest_is_least(pb, scene, groups, o, d)
+    assert bool(hit.all()) and bool((tid == 0).all()) and bool((t == 1.0).all())
+    tight = bvh.bvh_closest(_tight(pb, scene), o, d)
+    assert bool((tight[2] == 1).all())                   # the tight walk keeps walk order
+
+
+def test_shadow_ray_across_an_emissive_quads_diagonal():
+    """Shadow rays toward points sampled on one half of an emissive quad,
+    at its diagonal, with that half excluded: the other half blocks
+    wherever Moller-Trumbore reports its hit just short of tmax.  Padded,
+    the walk finds every such blocker the brute search and the reference
+    find; with tight boxes the panel's flat box is entered at tmax by
+    rounding and the walk misses most of them."""
+    y, x0, x1, z0, z1 = 9.25, 4.3, 5.1, 6.7, 7.5
+    quad = [[(x0, y, z0), (x1, y, z0), (x1, y, z1)], [(x0, y, z0), (x1, y, z1), (x0, y, z1)]]
+    floor = [[(0, 0, 0), (12, 0, 0), (12, 0, 12)], [(0, 0, 0), (12, 0, 12), (0, 0, 12)]]
+    scene, groups = _scenes([_mesh("floor", floor), _mesh("lamp", quad, 10.0)])
+    pb = bvh.build_bvh(scene, leaf_size=1)
+    rng = np.random.default_rng(3)
+    n = 1000
+    o = torch.from_numpy(np.stack([rng.uniform(0.5, 11.5, n), rng.uniform(0.01, 3.0, n),
+                                   rng.uniform(0.5, 11.5, n)], 1).astype(np.float32))
+    lv0, lv1, lv2 = scene.tri_v0[2], scene.tri_v1[2], scene.tri_v2[2]
+    b0 = torch.from_numpy(rng.uniform(0.0, 1.0, n).astype(np.float32))
+    b1 = torch.from_numpy(rng.uniform(0.0, 1e-6, n).astype(np.float32)) * (1.0 - b0)
+    point = b0[:, None] * lv0 + b1[:, None] * lv1 + (1.0 - b0 - b1)[:, None] * lv2
+    to = point - o
+    tmax = torch.sqrt((to * to).sum(dim=1))
+    d = to / tmax[:, None]
+    excl = torch.full((n,), 2, dtype=torch.int32)
+    occ = bvh.bvh_any(pb, o, d, tmax, excl)
+    assert torch.equal(occ, _brute(scene, o, d, tmax, excl))
+    assert torch.equal(occ, groups.occluded(o, d, tmax, excl.long()))
+    tight = bvh.bvh_any(_tight(pb, scene), o, d, tmax, excl)
+    assert int(occ.sum()) > 50 and int((occ & ~tight).sum()) > 25
+    assert not bool((tight & ~occ).any())
+
+
+def test_small_atrium_frame_matches_reference():
+    """The benchmark's atrium at 2,200 target triangles through ``bvh`` on
+    the CPU (64x36, k 3, two passes, the seed of a frame whose shadow rays
+    met the tight boxes' faults): every pixel equals the reference's
+    render (``benchmarks/drivers/frame.reference_image``), none mismatched."""
+    from chiaroscuro_tpu_torch.render.renderer import Renderer
+
+    seed = 1264210757
+    cfg = {"name": "atrium_bvh", "scene": {"generator": "atrium", "target_tris": 2200,
+                                           "geometry_seed": 0},
+           "xres": 64, "yres": 36, "k": 3, "intersector": "bvh",
+           "camera": {"eye": [1.8, 4.2, 5.0], "center": [24.0, 3.2, 6.8],
+                      "up": [0.0, 1.0, 0.0], "yview": 0.9}}
+    tr = {"spp": 1, "limits": {"mismatch_pct": 5.0, "rel_l1_pct": 0.5}}
+    meshes, textures = program.scene_inputs(cfg)
+    scene, _ = program.port_scene(meshes, textures, "cpu")
+    r = Renderer(scene, program.render_config(cfg, 1, seed, "cpu"))
+    assert hasattr(r.intersectors[0], "bvh")
+    for _ in range(2):
+        r.ray_trace()
+    pix = np.arange(64 * 36)
+    want = frame.reference_image(cfg, tr, seed, "cpu", meshes, textures, pix, r._layers)
+    checks = program.image_checks(r.pixels.reshape(-1, 3), want, tr["limits"])
+    assert float(want.mean()) > 0
+    assert [c.value for c in checks] == [0.0, 0.0]
 
 
 def test_step_counts_and_cpu_wrappers(built):
@@ -358,9 +568,13 @@ def test_seen_marks_walked_nodes_and_slots(built, query):
 def test_render_matches_jax_bvh(name):
     """The port's render through ``intersector bvh`` against the JAX
     package's render through its BVH, at the render bound.  Cornell at
-    CORNELL_CAMERA and at the config's default view (whose eye lies on two
-    walls' planes, so most primary rays tie at t = 0 and walk order picks
-    the wall in both packages); atrium(2_200) at its own view."""
+    CORNELL_CAMERA and at the config's default view, whose eye lies on two
+    walls' planes, so that most primary rays tie at t = 0: there the port's
+    BVH takes the least id, where the JAX package's keeps walk order, and
+    at that edge-on view the two packages' renders through the least id
+    part by XLA's FMAs (ROADMAP section 3, hazards), so the BVH's image is
+    held bit for bit against the port's dense pair's (the least (t, id));
+    atrium(2_200) at its own view."""
     if name.startswith("cornell"):
         tokens = ["input", "builtin:cornell_box", "xres", "16", "yres", "12", "samples", "4",
                   "k", "2"]
@@ -371,10 +585,16 @@ def test_render_matches_jax_bvh(name):
         tokens = ["input", "synthetic:atrium:2200", "xres", "32", "yres", "18", "samples",
                   "2", "k", "2", *_cam_tokens(ATRIUM_CAMERA)]
         sa = build_scene_arrays(jax_atrium(2_200))
-    jcfg = JaxRenderConfig.from_tokens(tokens)
-    ref = np.asarray(jax_render_image(sa, jcfg, intersectors=jax_make_intersectors(sa, "bvh")))
     cfg = RenderConfig.from_tokens(tokens + ["platform", "cpu", "intersector", "bvh"])
     img = render_image(_port_scene(sa), cfg).numpy()
+    if name == "cornell_default_view":
+        dense = RenderConfig.from_tokens(tokens + ["platform", "cpu", "intersector", "dense"])
+        ref = render_image(_port_scene(sa), dense).numpy()
+        assert float(ref.mean()) > 0.0
+        np.testing.assert_array_equal(img, ref)
+        return
+    jcfg = JaxRenderConfig.from_tokens(tokens)
+    ref = np.asarray(jax_render_image(sa, jcfg, intersectors=jax_make_intersectors(sa, "bvh")))
     assert float(ref.mean()) > 0.0
     assert_render_close(img, ref)
 

@@ -1086,11 +1086,13 @@ def _bvh_rays(case, dev):
     """(BVH, origins, dirs, tmax, exclude ids) of a B1/B2 case: the scenes'
     rays of :func:`_bvh_case` ("cornell", "atrium"), the atrium's in a
     seeded random order, its first R rays (R of 0, 1, 33 and 4,097, from
-    4,097 seeded rays about its root box), and "long": two warps of rays in
+    4,097 seeded rays about its root box), "long": two warps of rays in
     which one lane walks the atrium's longest seeded walk and the other 31
-    miss the root box."""
+    miss the root box, and "ties" (:func:`_bvh_ties`)."""
     from chiaroscuro_tpu_torch.accel import bvh
 
+    if case == "ties":
+        return _bvh_ties(dev)
     name = "cornell" if case == "cornell" else "atrium"
     _, b, o, d, tmax, excl = _bvh_case(name, dev)
     if case in ("cornell", "atrium"):
@@ -1122,7 +1124,38 @@ def _bvh_rays(case, dev):
     return b, o2, d2, t2, e2
 
 
-BVH_CASES = ["cornell", "atrium", "random order", "R=0", "R=1", "R=33", "R=4097", "long"]
+def _bvh_ties(dev):
+    """"ties": 500 random triangles twice over (ids i and i + 500 tie
+    exactly), each leaf's slots reversed so that the larger id of a pair is
+    walked first, and 2,000 rays through the triangles' centroids."""
+    import dataclasses
+
+    from chiaroscuro_tpu_torch.accel import bvh
+    from chiaroscuro_tpu_torch.scene.obj_loader import Mesh
+
+    rng = np.random.default_rng(41)
+    v = [torch.cat([x, x]) for x in _soup_tris(rng, 500, dev)]
+    pos = torch.stack(v, dim=1).reshape(-1, 3).cpu().numpy()
+    f32 = np.float32
+    soup = Mesh("soup", pos, np.tile(f32([0, 0, 1]), (3000, 1)), np.zeros((3000, 2), f32),
+                np.arange(3000, dtype=np.int32).reshape(1000, 3), f32([0.5] * 3), f32([0] * 3),
+                f32([0] * 3), f32([0] * 3), 1.0)
+    b = bvh.build_bvh(build_scene_tensors([soup], device=dev), leaf_size=8)
+    perm = torch.arange(b.tri_order.numel())
+    for s, c in zip(b.leaf_start.tolist(), b.leaf_count.tolist()):
+        if c > 0:
+            perm[s:s + c] = torch.arange(s + c - 1, s - 1, -1)
+    perm = perm.to(dev)
+    b = dataclasses.replace(b, tri_order=b.tri_order[perm].contiguous(),
+                            tris=b.tris[perm].contiguous())
+    cent = ((v[0] + v[1] + v[2]) / 3.0)[torch.from_numpy(rng.integers(0, 500, 2000)).to(dev)]
+    o = cent + torch.tensor(rng.normal(size=(2000, 3)), dtype=torch.float32, device=dev)
+    tmax = torch.full((2000,), 1e4, device=dev)
+    excl = torch.tensor(rng.integers(0, 1000, 2000), dtype=torch.int32, device=dev)
+    return b, o, cent - o, tmax, excl
+
+
+BVH_CASES = ["cornell", "atrium", "random order", "R=0", "R=1", "R=33", "R=4097", "long", "ties"]
 
 
 def _bvh_equal(bvh_cuda, bvh, b, o, d, tmax, excl):
@@ -1172,6 +1205,151 @@ def test_bvh_kernels_equal_plain_on_card(case, cuda_device):
         others = torch.ones(64, dtype=torch.bool, device=cuda_device)
         others[[5, 49]] = False
         assert int(steps[others].max()) == 1 and int(steps[5]) >= 30
+    if case == "ties":
+        # Every hit is the least id of its exact tie, though the larger is walked first.
+        assert float(want[0].float().mean()) > 0.9
+        assert int(want[2][want[0]].max()) < 500
+
+
+@pytest.fixture(scope="module")
+def sponza_bvh_pass():
+    """Every query of one pass of the benchmark's Sponza-class frame
+    (``benchmarks/configs/sponza_atrium_262k_bvh.json``: the 262k atrium at
+    1280x720, k 3) through ``intersector bvh``, recorded at the pair's
+    entry: (BVH, the reference's exact queries, [(kind, args)])."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import contextlib
+    import io
+    import json
+    import os
+
+    from benchmarks.harness import program
+    from benchmarks.reference import accel as ref_accel
+    from benchmarks.reference import scene as ref_scene
+    from chiaroscuro_tpu_torch.render.renderer import Renderer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = json.load(open(os.path.join(root, "benchmarks/configs/sponza_atrium_262k_bvh.json")))
+    cfg["name"] = "sponza_atrium_262k_bvh"
+    meshes, textures = program.scene_inputs(cfg)
+    scene, _ = program.port_scene(meshes, textures, "cuda")
+    r = Renderer(scene, program.render_config(cfg, 1, 1264210757, "cuda"))
+    closest_fn, any_fn = r.intersectors
+    queries = []
+
+    def closest(o, d):
+        queries.append(("closest", (o.contiguous().clone(), d.contiguous().clone())))
+        return closest_fn(o, d)
+
+    def occluded(o, d, tmax, excl):
+        queries.append(("any", (o.contiguous().clone(), d.contiguous().clone(), tmax.clone(),
+                                excl.clone())))
+        return any_fn(o, d, tmax, excl)
+
+    closest.bvh = closest_fn.bvh
+    r.intersectors = (closest, occluded)
+    with contextlib.redirect_stdout(io.StringIO()):
+        r.ray_trace()
+    groups = ref_accel.Groups(ref_scene.flatten(meshes, textures, "cuda"))
+    yield closest_fn.bvh, groups, queries
+    del r, scene, groups, queries
+    torch.cuda.empty_cache()
+
+
+def _bvh_sentinel_launch(b, args):
+    """B1 (two args) or B2 (four) launched straight into outputs filled with
+    sentinels (NaN floats, -1 ids and counts, 7 flags), with counts; a lane
+    the kernel never writes keeps them."""
+    from chiaroscuro_tpu_torch.accel.bvh import step_limit
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+
+    lib, _ = bvh_cuda.build()
+    o, d = args[0], args[1]
+    R, dev = o.shape[0], o.device
+
+    def fill(value, dtype):
+        return torch.full((R,), value, dtype=dtype, device=dev)
+
+    steps, tests = fill(-1, torch.int32), fill(-1, torch.int32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if len(args) == 2:
+        out = (fill(7, torch.uint8), fill(float("nan"), torch.float32), fill(-1, torch.int32),
+               fill(float("nan"), torch.float32), fill(float("nan"), torch.float32))
+        err = lib.bvh_closest_launch(*bvh_cuda._tables(b), o.data_ptr(), d.data_ptr(), R,
+                                     step_limit(b), *(x.data_ptr() for x in out),
+                                     steps.data_ptr(), tests.data_ptr(), stream)
+    else:
+        tmax, excl = args[2].contiguous(), args[3].to(torch.int32).contiguous()
+        out = (fill(7, torch.uint8),)
+        err = lib.bvh_any_launch(*bvh_cuda._tables(b), o.data_ptr(), d.data_ptr(),
+                                 tmax.data_ptr(), excl.data_ptr(), R, step_limit(b),
+                                 out[0].data_ptr(), steps.data_ptr(), tests.data_ptr(), stream)
+    assert err == 0, lib.bvh_traverse_error_string(err)
+    torch.cuda.synchronize()
+    return out, (steps, tests)
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_equal_plain_on_a_sponza_pass(sponza_bvh_pass):
+    """B1 and B2 bitwise equal to the plain walk, outputs and per-ray step
+    and leaf-test counts, on every query of one Sponza-size pass (three
+    closest and three shadow wavefronts of 921,600 rays), launched into
+    sentinel-filled outputs so that a lane never written shows; and under
+    ``counting()`` the wrappers record one entry a launch whose sums are
+    the plain walk's."""
+    from chiaroscuro_tpu_torch.accel import bvh
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+    from chiaroscuro_tpu_torch.utils.profiling import counting
+
+    b, _, queries = sponza_bvh_pass
+    assert [k for k, _ in queries] == ["closest", "any"] * 3
+    sums = []
+    for kind, args in queries:
+        assert args[0].shape[0] == 1280 * 720
+        out, counts = _bvh_sentinel_launch(b, args)
+        if kind == "closest":
+            want = bvh.bvh_closest(b, *args, counts=True)
+            assert int((out[0] > 1).sum()) == 0
+            assert torch.equal(out[0].bool(), want[0])
+            for f, got, ref in zip(("t", "tid", "u", "v"), out[1:], want[1:5]):
+                assert torch.equal(_bits(got), _bits(ref)), f
+        else:
+            want = bvh.bvh_any(b, *args, counts=True)
+            assert int((out[0] > 1).sum()) == 0
+            assert torch.equal(out[0].bool(), want[0])
+        wc = want[-1]
+        assert torch.equal(counts[0], wc[0]) and torch.equal(counts[1], wc[1])
+        sums.append({"kernel": "bvh_" + kind, "rays": args[0].shape[0],
+                     "steps": int(wc[0].sum()), "tests": int(wc[1].sum())})
+    with counting() as entries:
+        for kind, args in queries:
+            (bvh_cuda.closest_bvh if kind == "closest" else bvh_cuda.any_bvh)(b, *args)
+    assert entries == sums
+
+
+@pytest.mark.cuda
+def test_bvh_sponza_pass_matches_reference(sponza_bvh_pass):
+    """Every query of the Sponza-size pass through B1/B2 against the
+    benchmark reference's exact queries (``benchmarks/reference/accel.py``):
+    the same hits, ids and t bits, the same occlusion.  Before the pad and
+    the least-(t, id) rule, this pass's queries differed on 3 closest rays
+    and 85 shadow rays of 5.5 M, about one path in 10^4: the cell's ~640
+    passes in 30 s carry each check pixel's error to 5% of them."""
+    from chiaroscuro_tpu_torch.ops import bvh_cuda
+
+    b, groups, queries = sponza_bvh_pass
+    for kind, args in queries:
+        if kind == "closest":
+            hit, t, tid, _, _ = bvh_cuda.closest_bvh(b, *args)
+            rh, rt, rtid, _, _ = groups.closest(*args)
+            assert torch.equal(hit, rh)
+            assert torch.equal(tid[hit].long(), rtid[hit])
+            assert torch.equal(_bits(t[hit]), _bits(rt[hit]))
+        else:
+            o, d, tmax, excl = args
+            assert torch.equal(bvh_cuda.any_bvh(b, *args),
+                               groups.occluded(o, d, tmax, excl.long()))
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's spans (``utils/profiling.span``) on the CPU: no profiler range
 is entered while no profiler runs; under torch.profiler a pass yields each
 span nested in its parent, with the same pixels as without; the closest
-hit's backward and checkpointing's recompute open theirs."""
+hit's backward and checkpointing's recompute open theirs.  The BVH walks'
+counters (``utils/profiling.counting``): one entry a walk whose sums are the
+plain walk's counts, and none, with no counts asked, outside the context."""
 
 import json
 from collections import Counter
@@ -10,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from chiaroscuro_tpu_torch.accel import bvh
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
+from chiaroscuro_tpu_torch.ops import bvh_cuda
 from chiaroscuro_tpu_torch.render.renderer import Renderer, render_samples
 from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
@@ -187,3 +191,74 @@ def test_checkpoint_recompute_reopens_spans(scene, tmp_path):
         assert len(opened) == 2 * SPP * per_sample, name
         assert len(inside) == SPP * per_sample, name
     assert float(kd.grad.abs().sum()) > 0.0
+
+
+def _bvh_renderer(scene):
+    cfg = RenderConfig(obj_path="test", k=DEPTH, xres=RES[0], yres=RES[1], vp=CAM["eye"],
+                       la=CAM["center"], up=CAM["up"], yview=CAM["yview"], samples=SPP, seed=7,
+                       platform="cpu", intersector="bvh")
+    return Renderer(scene, cfg)
+
+
+def test_counting_records_one_entry_a_walk(scene):
+    """Inside ``counting()`` a pass through the BVH records one entry a walk
+    (a closest and a shadow query a bounce and sample, 128 rays each: the
+    8x8 image padded to a row), and the pixels are those of a pass outside
+    it; a direct call's sums equal the plain walk's own ``counts=True``
+    totals, and a caller that asks for counts gets them as before."""
+    plain = _bvh_renderer(scene)
+    plain.ray_trace()
+    r = _bvh_renderer(scene)
+    with profiling.counting() as entries:
+        r.ray_trace()
+    assert np.array_equal(r.pixels, plain.pixels)
+    assert [e["kernel"] for e in entries] == ["bvh_closest", "bvh_any"] * (SPP * DEPTH)
+    assert {e["rays"] for e in entries} == {128}
+    assert all(e["steps"] >= e["rays"] for e in entries)
+    assert sum(e["tests"] for e in entries) > 0
+    assert profiling.walk_counts() is None
+
+    b = r.intersectors[0].bvh
+    g = torch.Generator().manual_seed(5)
+    o = (scene.world_min + (scene.world_max - scene.world_min) * torch.rand((50, 3), generator=g))
+    d = torch.randn((50, 3), generator=g)
+    tmax = torch.full((50,), 1e4)
+    excl = torch.full((50,), -1, dtype=torch.int32)
+    want_c = bvh.bvh_closest(b, o, d, counts=True)[5]
+    want_a = bvh.bvh_any(b, o, d, tmax, excl, counts=True)[1]
+    with profiling.counting() as entries:
+        out = bvh_cuda.closest_bvh(b, o, d)
+        occ, counts = bvh_cuda.any_bvh(b, o, d, tmax, excl, counts=True)
+        bvh_cuda.closest_bvh(b, o[:0], d[:0])              # no rays: no entry
+    assert len(out) == 5 and torch.equal(counts[0], want_a[0])
+    assert entries == [
+        {"kernel": "bvh_closest", "rays": 50, "steps": int(want_c[0].sum()),
+         "tests": int(want_c[1].sum())},
+        {"kernel": "bvh_any", "rays": 50, "steps": int(want_a[0].sum()),
+         "tests": int(want_a[1].sum())},
+    ]
+
+
+def test_no_counting_context_asks_no_counts(scene, monkeypatch):
+    """Outside ``counting()`` the walks run as they did: no counts asked of
+    the walk, nothing recorded; nested contexts each keep their own."""
+    asked = []
+
+    def spy(fn):
+        def wrapped(*args, counts=False, **kw):
+            asked.append(counts)
+            return fn(*args, counts=counts, **kw)
+        return wrapped
+
+    monkeypatch.setattr(bvh_cuda, "bvh_closest", spy(bvh.bvh_closest))
+    monkeypatch.setattr(bvh_cuda, "bvh_any", spy(bvh.bvh_any))
+    _bvh_renderer(scene).ray_trace()
+    assert asked == [False] * (2 * SPP * DEPTH)
+    assert profiling.walk_counts() is None
+    r = _bvh_renderer(scene)
+    with profiling.counting() as outer:
+        r.ray_trace()
+        with profiling.counting() as inner:
+            r.ray_trace()
+        assert profiling.walk_counts() is outer
+    assert len(outer) == len(inner) == 2 * SPP * DEPTH
