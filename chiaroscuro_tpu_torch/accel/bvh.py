@@ -535,7 +535,9 @@ def make_bvh_intersectors(
     on the card (``ops/bvh_cuda.py``), the plain walk for CPU tensors.  No
     ``.planar_fn``: the integrator takes its row path, as in the JAX
     package, and checks there (:func:`check_no_vertex_grad`) the scene it
-    is given, which may not be the one the pair was built from."""
+    is given, which may not be the one the pair was built from.  Both carry
+    ``.capturable``, :func:`~chiaroscuro_tpu_torch.ops.bvh_cuda.capturable`
+    (``render/renderer.Renderer``)."""
     from chiaroscuro_tpu_torch.ops import bvh_cuda
 
     check_no_vertex_grad(scene)
@@ -548,4 +550,5 @@ def make_bvh_intersectors(
         return bvh_cuda.any_bvh(bvh, origins, dirs, tmax, exclude_id)
 
     closest_fn.bvh = bvh
+    closest_fn.capturable = any_fn.capturable = bvh_cuda.capturable
     return closest_fn, any_fn

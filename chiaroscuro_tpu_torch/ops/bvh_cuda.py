@@ -82,6 +82,15 @@ def _tables(bvh):
             bvh.tri_order.data_ptr())
 
 
+def capturable() -> bool:
+    """Whether B1/B2's launches may be recorded in a CUDA graph: they
+    neither synchronise nor read back, except inside an open
+    ``utils/profiling.counting()``, where each reads its counts back to the
+    host (:func:`_counted`).  The pair of ``accel/bvh.make_bvh_intersectors``
+    answers ``render/renderer.Renderer`` with it."""
+    return walk_counts() is None
+
+
 def _counted(kernel, out, counts, sink):
     """A walk's outputs ``out``, which end in their (steps, tests) where
     ``counts`` or ``sink`` asked for them: inside an open ``counting()``

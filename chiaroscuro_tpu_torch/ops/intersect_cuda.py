@@ -705,13 +705,20 @@ def row_major_pair(closest_planar, any_planar):
     return closest_fn, any_fn
 
 
+def capturable() -> bool:
+    """K1/K2 launch without synchronising or reading back, so a renderer may
+    record a pass through the dense pair as a CUDA graph: always True."""
+    return True
+
+
 def make_dense_intersectors(scene):
     """The dense intersector pair over the scene's triangles.
 
     ``closest_fn(origins, dirs)`` / ``any_fn(origins, dirs, tmax, excl)``
     speak the row-major ``(R, 3)`` oracle interface; each carries
     ``.planar_fn`` speaking the planar ``(3, B0, 128)`` layout, which the
-    integrator calls with a ``live`` (B0, 1) row hint (``.accepts_live``).
+    integrator calls with a ``live`` (B0, 1) row hint (``.accepts_live``),
+    and ``.capturable``, :func:`capturable` (``render/renderer.Renderer``).
 
     The triangle rows and the attribute table are derived from the scene's
     fields without detaching them, so a pair made from a scene whose fields
@@ -738,4 +745,5 @@ def make_dense_intersectors(scene):
     closest_fn, any_fn = row_major_pair(closest_planar, any_planar)
     closest_fn.accepts_live = True
     any_fn.accepts_live = True
+    closest_fn.capturable = any_fn.capturable = capturable
     return closest_fn, any_fn

@@ -49,11 +49,16 @@ _PARITY = 0x1BD11BDA
 _M32 = 0xFFFFFFFF
 
 
-def _word(x, device) -> torch.Tensor:
-    """A uint32 word (Python int or integer tensor) as an int64 tensor."""
+def _word(x, device):
+    """A uint32 word: an integer tensor as an int64 tensor on ``device``, a
+    Python int as a masked Python int.  A Python int stays a scalar of the
+    arithmetic, so a block over tensor words copies nothing from the host
+    (the renderer captures a pass as a CUDA graph, where such a copy cannot
+    be recorded); int64 arithmetic with it gives the same bits as with the
+    word held in a tensor."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64) & _M32
-    return torch.tensor(int(x) & _M32, dtype=torch.int64, device=device)
+    return int(x) & _M32
 
 
 def _rotl(x, n: int):
@@ -78,7 +83,11 @@ def threefry2x32(k0, k1, c0, c1):
             x1 = _rotl(x1, r) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _M32
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
+    return tuple(
+        x if isinstance(x, torch.Tensor)
+        else torch.tensor(x, dtype=torch.int64, device=device)
+        for x in (x0, x1)
+    )
 
 
 def uniform_from_bits(bits):

@@ -5,11 +5,14 @@ The reference's only instrumentation is a wall-clock print per render
 (``src/rayTracer.cpp:39,72-73``).  Here:
 
 - :func:`span`: the port's named ranges on the timed path, on only while
-  a ``torch.profiler`` runs (``render.pass``, ``render.to_host``,
-  ``render.accumulate``, ``render.samples``, ``render.raygen``,
-  ``render.bounce`` with its children ``render.compact``,
-  ``render.closest`` and ``render.shadow``, and
-  ``isect.closest_backward``); shading is ``render.bounce``'s self time;
+  a ``torch.profiler`` runs (``render.pass``, ``render.replay``,
+  ``render.to_host``, ``render.accumulate``, ``render.samples``,
+  ``render.raygen``, ``render.bounce`` with its children
+  ``render.compact``, ``render.closest`` and ``render.shadow``, and
+  ``isect.closest_backward``); shading is ``render.bounce``'s self time.
+  A replayed pass opens ``render.pass``, ``render.replay`` and
+  ``render.to_host`` only: the ranges inside it were issued at capture;
+- ``PASSES``: ``Renderer.ray_trace``'s passes by kind;
 - :func:`counting`: the BVH walks' work counters, on only inside the
   context: each B1/B2 launch (``ops/bvh_cuda.py``; the plain walk on CPU
   tensors) then runs with counts and records its rays, box tests (steps)
@@ -57,6 +60,11 @@ def span(name: str):
         return torch.profiler.record_function(name)
     return _NO_SPAN
 
+
+# Renderer.ray_trace's passes by kind: "eager" (issued operator by
+# operator), "captured" (recorded as a CUDA graph) and "replayed" (that
+# graph launched; the pass that captures also replays, so it counts twice).
+PASSES = {"captured": 0, "replayed": 0, "eager": 0}
 
 # The open counting() context's entries; None while none is open.
 _WALK_COUNTS: Optional[List[dict]] = None
