@@ -34,10 +34,12 @@ tensors.
 Gradients: the walk's t, u and v come from the BVH's detached copies of the
 vertices, so no geometry gradient can flow through a hit (in the JAX
 package ``build_bvh`` fails on a traced vertex array).  Material gradients
-(kd, ke, ks, shininess, tex_data) flow through the integrator's row path,
-which gathers them by the hit id.  A scene whose vertices require grad
-raises :class:`ValueError` here rather than return a partial vertex
-gradient (the row path's ``tri_v0[tid]`` with u and v held constant).
+(kd, ke, ks, shininess, tex_data) flow through the pair's ``.planar_fn``,
+which gathers the hit's attribute row by id (``intersect_cuda.planar_pair``,
+whose backward is the segmented row sum of ``ops/scatter_cuda.py``).  A
+scene whose vertices require grad raises :class:`ValueError` here rather
+than return a partial vertex gradient (the attribute row's vertices with u
+and v held constant).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ import torch
 
 from chiaroscuro_tpu_torch.accel.clusters import BOX_PAD
 from chiaroscuro_tpu_torch.geometry.intersect import AnyFn, ClosestFn, ClosestHit
-from chiaroscuro_tpu_torch.ops.intersect_cuda import _mt_core
+from chiaroscuro_tpu_torch.ops.intersect_cuda import _mt_core, _prep_attrs, planar_pair
 from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
 
 SENTINEL = -1
@@ -532,12 +534,13 @@ def make_bvh_intersectors(
     scene: SceneTensors, bvh: BVHArrays
 ) -> Tuple[ClosestFn, AnyFn]:
     """The row-interface pair ``(closest_fn, any_fn)`` over ``bvh``: B1/B2
-    on the card (``ops/bvh_cuda.py``), the plain walk for CPU tensors.  No
-    ``.planar_fn``: the integrator takes its row path, as in the JAX
-    package, and checks there (:func:`check_no_vertex_grad`) the scene it
-    is given, which may not be the one the pair was built from.  Both carry
-    ``.capturable``, :func:`~chiaroscuro_tpu_torch.ops.bvh_cuda.capturable`
-    (``render/renderer.Renderer``)."""
+    on the card (``ops/bvh_cuda.py``), the plain walk for CPU tensors.  Each
+    carries ``.planar_fn`` (:func:`~chiaroscuro_tpu_torch.ops.intersect_cuda.
+    planar_pair`, the hit's attributes from ``scene``) and ``.capturable``,
+    :func:`~chiaroscuro_tpu_torch.ops.bvh_cuda.capturable`
+    (``render/renderer.Renderer``); ``closest_fn.bvh`` is ``bvh``, on which
+    the integrator checks (:func:`check_no_vertex_grad`) the scene it is
+    given, which may not be the one the pair was built from."""
     from chiaroscuro_tpu_torch.ops import bvh_cuda
 
     check_no_vertex_grad(scene)
@@ -549,6 +552,7 @@ def make_bvh_intersectors(
     def any_fn(origins, dirs, tmax, exclude_id):
         return bvh_cuda.any_bvh(bvh, origins, dirs, tmax, exclude_id)
 
+    closest_fn.planar_fn, any_fn.planar_fn = planar_pair(closest_fn, any_fn, _prep_attrs(scene))
     closest_fn.bvh = bvh
     closest_fn.capturable = any_fn.capturable = bvh_cuda.capturable
     return closest_fn, any_fn

@@ -25,6 +25,15 @@ intersected; this module picks the backend:
   GPU below 2^24 triangles (the cluster ids' cap), else the BVH, with a
   ``RuntimeWarning`` on a GPU.
 
+Every pair speaks the row-major oracle interface of ``geometry/intersect.py``
+and carries ``.planar_fn``: the planar ``(3, B0, 128)`` functions
+``closest(o3, d3, live=None)``, whose ``ClosestHit`` carries the hit's
+shading-attribute row (``ClosestHit.attrs``) from the scene the pair is made
+from, and ``any(o3, d3, tmax, excl, live=None)``, which the integrator, the
+raster frame and the phase profiler call.  The brute and BVH pairs get theirs
+from ``ops/intersect_cuda.planar_pair``; ``live`` is a (B0, 1) row hint that
+only the dense pair reads.
+
 Every pair is differentiable through its closest-hit query when it is made
 from a scene whose fields require grad (the BVH's through the materials
 only); a loss rebuilds the pair on each parameter-substituted scene, and the
@@ -46,6 +55,11 @@ from chiaroscuro_tpu_torch.geometry.intersect import (
     intersect_closest_bruteforce,
 )
 from chiaroscuro_tpu_torch.ops import cluster_cuda
+from chiaroscuro_tpu_torch.ops.intersect_cuda import (
+    _prep_attrs,
+    make_dense_intersectors,
+    planar_pair,
+)
 from chiaroscuro_tpu_torch.scene.scene_arrays import SceneTensors
 
 # Largest scene the dense sweep serves (the JAX package's
@@ -83,10 +97,6 @@ def make_intersectors(
         method = resolve_auto(scene.n_tris, scene.device.type == "cuda")
 
     if method in ("dense", "pallas"):
-        from chiaroscuro_tpu_torch.ops.intersect_cuda import (
-            make_dense_intersectors,
-        )
-
         return make_dense_intersectors(scene)
 
     if method == "brute":
@@ -103,6 +113,9 @@ def make_intersectors(
                 origins, dirs, tv0, tv1, tv2, tmax, exclude_id, chunk
             )
 
+        closest_fn.planar_fn, any_fn.planar_fn = planar_pair(
+            closest_fn, any_fn, _prep_attrs(scene)
+        )
         return closest_fn, any_fn
 
     if method == "cluster":

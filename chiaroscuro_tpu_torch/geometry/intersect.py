@@ -28,11 +28,11 @@ INF = float("inf")
 class ClosestHit(NamedTuple):
     """Result of a closest-hit query over a ray wavefront.
 
-    ``attrs`` optionally carries per-hit shading attributes fetched by the
-    intersector itself (the dense kernel loads the winner's attribute row);
-    ``None`` means the integrator gathers from the scene by ``tid`` instead.
-    Layout when present: dict of planar tensors keyed as
-    ``ops.intersect_cuda.ATTR_LAYOUT``.
+    ``attrs`` carries the winner's shading-attribute row in every pair's
+    planar answer (``.planar_fn``; the kernels load it, the brute and BVH
+    pairs gather it), as a dict of planar tensors keyed as
+    ``ops.intersect_cuda.ATTR_LAYOUT``; the brute and BVH row functions
+    leave it ``None``.
     """
 
     hit: torch.Tensor   # bool

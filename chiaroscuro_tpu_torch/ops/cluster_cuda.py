@@ -859,7 +859,7 @@ def make_cluster_intersectors(
     """Cluster-culled intersector pair for large scenes
     (``cluster_pallas.py:991``), speaking the same interface as
     :func:`~chiaroscuro_tpu_torch.ops.intersect_cuda.make_dense_intersectors`
-    (without ``live`` hints: parked rows cull to trip 0).
+    (whose ``live`` hints it ignores: parked rows cull to trip 0).
 
     The meshlet decomposition is built on the host from the scene's
     geometry unless ``clusters`` is given (a prebuilt ``ClusterArrays``,
@@ -902,7 +902,7 @@ def make_cluster_intersectors(
     tri_orig = _prep_tris(scene.tri_v0, scene.tri_v1, scene.tri_v2)
     packed, attrs = derive_buffers(scene, clusters, tri_orig)
 
-    def closest_planar(o3, d3) -> ClosestHit:
+    def closest_planar(o3, d3, live=None) -> ClosestHit:
         o3, d3 = o3.contiguous(), d3.contiguous()
         lists = cull_fn(o3, d3, bmin, bmax, Le)
         t, tid, u, v, am = closest_cluster_diff(
@@ -910,7 +910,7 @@ def make_cluster_intersectors(
         )
         return ClosestHit(t < BIG, t, tid, u, v, unpack_attrs_planar(am))
 
-    def any_planar(o3, d3, tmax, excl):
+    def any_planar(o3, d3, tmax, excl, live=None):
         o3, d3 = o3.detach().contiguous(), d3.detach().contiguous()
         tmax = tmax.detach().contiguous()
         lists = cull_fn(o3, d3, bmin, bmax, Le, tmax=tmax)

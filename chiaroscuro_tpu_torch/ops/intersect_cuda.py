@@ -560,7 +560,8 @@ def onehot_fetch(mat, idx):
 
 
 class _GatherFetch(torch.autograd.Function):
-    """``mat (W, T)`` fetched at ``tid`` by indexing the table's rows; the
+    """``mat (W, T)`` fetched at ``tid`` by indexing its columns, into a
+    contiguous (W, B0, 128) that the consumers read coalesced; the
     backward sums each row's cotangents by :func:`~chiaroscuro_tpu_torch.
     ops.scatter_cuda.scatter_rows_sum` (a sort by id and a segmented sum:
     no atomics, so two runs give bitwise-equal gradients)."""
@@ -569,7 +570,7 @@ class _GatherFetch(torch.autograd.Function):
     def forward(ctx, mat, tid):
         ctx.save_for_backward(tid)
         ctx.n_rows = mat.shape[1]
-        return mat.T[tid.long()].permute(2, 0, 1)
+        return mat[:, tid.long()]
 
     @staticmethod
     def backward(ctx, ct):
@@ -578,8 +579,8 @@ class _GatherFetch(torch.autograd.Function):
 
 
 def _gather_fetch(mat, tid):
-    """``mat (W, T)`` fetched at the int32 ``tid`` (B0, 128) by indexing
-    the table's rows, (W, B0, 128) (:class:`_GatherFetch`)."""
+    """``mat (W, T)`` fetched at the int32 ``tid`` (B0, 128), (W, B0, 128)
+    (:class:`_GatherFetch`)."""
     return _GatherFetch.apply(mat, tid)
 
 
@@ -705,6 +706,31 @@ def row_major_pair(closest_planar, any_planar):
     return closest_fn, any_fn
 
 
+def planar_pair(closest_rows, any_rows, attrs):
+    """The planar functions over a row-interface pair, the inverse of
+    :func:`row_major_pair`: ``closest(o3, d3, live=None)`` runs
+    ``closest_rows`` on the wavefront's rows, reshapes ``hit, t, tid, u, v``
+    to the wavefront and fetches the hit's row of ``attrs`` (T, ATTR_K),
+    :func:`_prep_attrs` of the scene the pair is made from, by
+    :func:`_gather_fetch`; ``any(o3, d3, tmax, excl, live=None)`` runs
+    ``any_rows``.  ``live`` is ignored."""
+
+    def closest_planar(o3, d3, live=None) -> ClosestHit:
+        B = o3.shape[1:]
+        res = closest_rows(o3.reshape(3, -1).T, d3.reshape(3, -1).T)
+        hit, t, tid, u, v = (x.reshape(B) for x in res[:5])
+        am = _gather_fetch(attrs.T, tid)
+        return ClosestHit(hit, t, tid, u, v, unpack_attrs_planar(am))
+
+    def any_planar(o3, d3, tmax, excl, live=None):
+        return any_rows(
+            o3.reshape(3, -1).T, d3.reshape(3, -1).T, tmax.reshape(-1),
+            excl.reshape(-1),
+        ).reshape(tmax.shape)
+
+    return closest_planar, any_planar
+
+
 def capturable() -> bool:
     """K1/K2 launch without synchronising or reading back, so a renderer may
     record a pass through the dense pair as a CUDA graph: always True."""
@@ -716,9 +742,9 @@ def make_dense_intersectors(scene):
 
     ``closest_fn(origins, dirs)`` / ``any_fn(origins, dirs, tmax, excl)``
     speak the row-major ``(R, 3)`` oracle interface; each carries
-    ``.planar_fn`` speaking the planar ``(3, B0, 128)`` layout, which the
-    integrator calls with a ``live`` (B0, 1) row hint (``.accepts_live``),
-    and ``.capturable``, :func:`capturable` (``render/renderer.Renderer``).
+    ``.planar_fn`` speaking the planar ``(3, B0, 128)`` layout, whose
+    ``live`` (B0, 1) row hint gives dead rows the sentinels, and
+    ``.capturable``, :func:`capturable` (``render/renderer.Renderer``).
 
     The triangle rows and the attribute table are derived from the scene's
     fields without detaching them, so a pair made from a scene whose fields
@@ -743,7 +769,5 @@ def make_dense_intersectors(scene):
         )
 
     closest_fn, any_fn = row_major_pair(closest_planar, any_planar)
-    closest_fn.accepts_live = True
-    any_fn.accepts_live = True
     closest_fn.capturable = any_fn.capturable = capturable
     return closest_fn, any_fn

@@ -10,10 +10,8 @@ white light at the scene's VP when there are none (``openglPreview.cpp:82-86``,
 
 The frame is made by the path tracer's own machinery on the scene's device:
 one primary-visibility closest-hit wavefront (no bounces, no NEE, no RNG)
-through the renderer's intersector, shaded per the shaders above.  A pair
-with ``.planar_fn`` (dense K1, cluster K4/K6) answers in the planar layout
-with the winner's attribute row; the others (brute, BVH) answer row-major
-and the frame gathers the attributes by hit id.
+through the renderer's intersector's ``.planar_fn``, which answers in the
+planar layout with the winner's attribute row, shaded per the shaders above.
 
 Divergence (documented): ``material.fs`` reads the material's *ambient* color;
 ``SceneTensors`` deliberately has no Ka field (the loader's Ka→Ke promotion
@@ -57,44 +55,17 @@ def _raster(scene: SceneTensors, eye, center, up, yview, xres: int, yres: int,
     eye_t = torch.as_tensor(np.asarray(eye, np.float32), device=dev)
     origins = eye_t[:, None, None].expand((3,) + B).contiguous()
 
-    closest_planar = getattr(closest_fn, "planar_fn", None)
-    if closest_planar is not None:
-        res = closest_planar(origins, dirs)
-        hit, bu, bv = res.hit, res.u, res.v
-        A = res.attrs
-        point = A["v0"] + P.pscale(bu, A["e1"]) + P.pscale(bv, A["e2"])
-        normal, kd, ks, ns = A["normal"], A["kd"], A["ks"], A["ns"]
-        texid = A["texid"]
-        uvp = (
-            A["uv0"] * (1.0 - bu - bv)[None]
-            + A["uv1"] * bu[None]
-            + A["uv2"] * bv[None]
-        )
-    else:
-        res = closest_fn(P.to_rows(origins), P.to_rows(dirs))
-        hit = res.hit.reshape(B)
-        bu, bv = res.u, res.v
-        tid = res.tid.long()
-
-        def pv(rows3):
-            return P.to_planar(rows3, B)
-
-        point = pv(
-            scene.tri_v0[tid] * (1.0 - bu - bv)[:, None]
-            + scene.tri_v1[tid] * bu[:, None]
-            + scene.tri_v2[tid] * bv[:, None]
-        )
-        normal = pv(scene.normal[tid])
-        kd = pv(scene.kd[tid])
-        ks = pv(scene.ks[tid])
-        ns = scene.shininess[tid].reshape(B)
-        texid = scene.tex_id[tid].reshape(B)
-        uv = (
-            scene.uv0[tid] * (1.0 - bu - bv)[:, None]
-            + scene.uv1[tid] * bu[:, None]
-            + scene.uv2[tid] * bv[:, None]
-        )
-        uvp = torch.stack([uv[:, 0].reshape(B), uv[:, 1].reshape(B)])
+    res = closest_fn.planar_fn(origins, dirs)
+    hit, bu, bv = res.hit, res.u, res.v
+    A = res.attrs
+    point = A["v0"] + P.pscale(bu, A["e1"]) + P.pscale(bv, A["e2"])
+    normal, kd, ks, ns = A["normal"], A["kd"], A["ks"], A["ns"]
+    texid = A["texid"]
+    uvp = (
+        A["uv0"] * (1.0 - bu - bv)[None]
+        + A["uv1"] * bu[None]
+        + A["uv2"] * bv[None]
+    )
 
     n = P.pnormalize(normal)
     lp = light_pos[:, None, None]

@@ -160,7 +160,6 @@ def profile_phases(
     coherent than the primary rays re-traced here — but every number is a
     measurement of a real program on the same shapes.
     """
-    from chiaroscuro_tpu_torch.geometry import planar as P
     from chiaroscuro_tpu_torch.geometry.camera import (
         camera_basis,
         primary_ray_dirs_planar,
@@ -188,8 +187,7 @@ def profile_phases(
     eye_t = torch.as_tensor(np.asarray(eye, np.float32), device=dev)
     origins = eye_t[:, None, None].expand((3,) + B).contiguous()
 
-    closest_planar = getattr(closest_fn, "planar_fn", None)
-    any_planar = getattr(any_fn, "planar_fn", None)
+    closest_planar, any_planar = closest_fn.planar_fn, any_fn.planar_fn
 
     def raygen():
         acc = torch.zeros((3,) + B, device=dev)
@@ -204,11 +202,7 @@ def profile_phases(
     def closest_sweep():
         acc = torch.zeros(B, device=dev)
         for _ in range(depth * spp):
-            if closest_planar is not None:
-                t = closest_planar(origins, dirs).t
-            else:
-                t = closest_fn(P.to_rows(origins), P.to_rows(dirs)).t.reshape(B)
-            acc = acc + t
+            acc = acc + closest_planar(origins, dirs).t
         return acc
 
     def shadow_sweep():
@@ -216,14 +210,7 @@ def profile_phases(
         excl = torch.full(B, -1, dtype=torch.int32, device=dev)
         acc = torch.zeros(B, device=dev)
         for _ in range(depth * spp):
-            if any_planar is not None:
-                occ = any_planar(origins, dirs, tmax, excl)
-            else:
-                occ = any_fn(
-                    P.to_rows(origins), P.to_rows(dirs), tmax.reshape(-1),
-                    excl.reshape(-1),
-                ).reshape(B)
-            acc = acc + occ.to(torch.float32)
+            acc = acc + any_planar(origins, dirs, tmax, excl).to(torch.float32)
         return acc
 
     def full():

@@ -64,7 +64,9 @@ from chiaroscuro_tpu_torch.geometry.intersect import (
     intersect_any_bruteforce,
     intersect_closest_bruteforce,
 )
+from chiaroscuro_tpu_torch.geometry import planar as P
 from chiaroscuro_tpu_torch.ops import bvh_cuda
+from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
 from chiaroscuro_tpu_torch.ops.intersect_cuda import _mt_core
 from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
 from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA
@@ -529,6 +531,47 @@ def test_empty_wavefronts_walk_without_a_launch(built):
     assert bvh_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("method", ["bvh", "brute"])
+def test_planar_fn_answers_as_the_row_functions(method):
+    """A row pair's ``.planar_fn`` (``intersect_cuda.planar_pair``) on 600
+    seeded atrium(2_200) rays, padded to whole 128-lane rows with replicas of
+    the first: hit, t, id, u and v bitwise the row functions' on the padded
+    rows (and on the 600 rows alone), the attribute row the scene's
+    ``_prep_attrs`` row of the hit id, occlusion bitwise; a ``live`` hint
+    changes nothing."""
+    sa = build_scene_arrays(jax_atrium(2_200))
+    scene = _port_scene(sa)
+    cf, af = make_intersectors(scene, method)
+    o, d = (torch.from_numpy(x) for x in _rays(sa, 29, n=600, on_plane=False))
+    o3, R = ic._rows_to_planar(o)
+    d3, _ = ic._rows_to_planar(d)
+    B = o3.shape[1:]
+    assert R % 128 and B == (5, 128)
+    dead = torch.zeros((B[0], 1), dtype=torch.int32)
+    res = cf.planar_fn(o3, d3, live=dead)
+    rows = cf(P.to_rows(o3), P.to_rows(d3))
+    alone = cf(o, d)
+    for got, want, few in zip(res[:5], rows[:5], alone[:5]):
+        assert got.shape == B and torch.equal(got, want.reshape(B))
+        assert torch.equal(got.reshape(-1)[:R], few)
+    assert 0.2 < float(res.hit.float().mean()) < 0.95
+    want = ic.unpack_attrs_planar(ic._prep_attrs(scene)[res.tid.long()].permute(2, 0, 1))
+    assert res.attrs.keys() == want.keys()
+    for k in want:
+        assert torch.equal(res.attrs[k], want[k]), k
+    for k, got in zip(res._fields[:5], cf.planar_fn(o3, d3)[:5]):
+        assert torch.equal(got, getattr(res, k)), k
+
+    rng = np.random.default_rng(31)
+    tmax = torch.from_numpy(rng.uniform(0.5, 20.0, B).astype(np.float32))
+    excl = torch.where(torch.from_numpy(rng.random(B) < 0.5), res.tid, -1)
+    occ = af.planar_fn(o3, d3, tmax, excl, live=dead)
+    want_occ = af(P.to_rows(o3), P.to_rows(d3), tmax.reshape(-1), excl.reshape(-1))
+    assert occ.shape == B and torch.equal(occ, want_occ.reshape(B))
+    assert torch.equal(af.planar_fn(o3, d3, tmax, excl), occ)
+    assert 0.05 < float(occ.float().mean()) < 0.95
+
+
 @pytest.mark.parametrize("query", ["closest", "any"])
 def test_seen_marks_walked_nodes_and_slots(built, query):
     """``seen`` marks what the walks touch, the bytes the kernels' bound
@@ -612,7 +655,7 @@ def test_auto_above_dense_ceiling_on_cpu_is_bvh(tmp_path):
     jr.ray_trace(jcfg.vp, jcfg.la, jcfg.up, jcfg.yview)
     r = cli.run(["chiaroscuro_tpu_torch", "scenes/cornell.rtc", "no-preview", *tokens,
                  "platform", "cpu", "output", str(tmp_path / "a.exr")])
-    assert hasattr(r.intersectors[0], "bvh") and not hasattr(r.intersectors[0], "planar_fn")
+    assert hasattr(r.intersectors[0], "bvh") and callable(r.intersectors[0].planar_fn)
     assert (tmp_path / "a.exr").exists()
     assert_render_close(r.pixels, np.asarray(jr.pixels))
 
@@ -665,9 +708,9 @@ def test_vertex_grad_raises():
     building its pair raises ValueError naming the BVH and pointing at the
     dense and cluster paths (the JAX package fails there too, on a traced
     vertex array).  So does rendering such a scene through a pair built
-    before from the detached scene: the integrator's row path checks the
-    scene it is given, rather than return the partial gradient of
-    ``tri_v0[tid]`` with u and v held constant."""
+    before from the detached scene: the integrator checks the scene it is
+    given on the pair's ``.bvh``, rather than return a render whose hit
+    points come from the pair's detached vertices."""
     scene = _port_scene(build_scene_arrays(jax_cornell_box()))
     p = params_from_numpy({"tri_v0": scene.tri_v0.numpy()}, "cpu")
     with pytest.raises(ValueError, match="BVH.*'dense' or 'cluster'"):

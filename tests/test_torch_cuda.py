@@ -1227,6 +1227,7 @@ def sponza_bvh_pass():
     from benchmarks.harness import program
     from benchmarks.reference import accel as ref_accel
     from benchmarks.reference import scene as ref_scene
+    from chiaroscuro_tpu_torch.ops.intersect_cuda import _prep_attrs, planar_pair
     from chiaroscuro_tpu_torch.render.renderer import Renderer
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1247,6 +1248,7 @@ def sponza_bvh_pass():
                                 excl.clone())))
         return any_fn(o, d, tmax, excl)
 
+    closest.planar_fn, occluded.planar_fn = planar_pair(closest, occluded, _prep_attrs(scene))
     closest.bvh = closest_fn.bvh
     r.intersectors = (closest, occluded)
     with contextlib.redirect_stdout(io.StringIO()):

@@ -258,9 +258,9 @@ def _atrium_cluster_pairs():
 @pytest.mark.parametrize("case", ["cornell_brute", "cornell_dense", "cornell_bvh",
                                   "atrium_cluster"])
 def test_raster_frame_matches_jax(case):
-    """``raster_frame`` through the row branch (brute, BVH) and the planar
-    one (dense K1, cluster K4) against the JAX package's, 32x24, at the
-    module's tolerance."""
+    """``raster_frame`` through every pair's ``.planar_fn`` (brute and BVH
+    through ``intersect_cuda.planar_pair``, dense K1, cluster K4) against
+    the JAX package's, 32x24, at the module's tolerance."""
     if case == "atrium_cluster":
         sa, jpair, pair = _atrium_cluster_pairs()
         cam = ATRIUM_CAMERA
@@ -271,7 +271,7 @@ def test_raster_frame_matches_jax(case):
                     yview=0.7)
     jcfg = JaxRenderConfig(xres=32, yres=24, **view)
     cfg = RenderConfig(xres=32, yres=24, platform="cpu", **view)
-    assert (getattr(pair[0], "planar_fn", None) is None) == case.endswith(("brute", "bvh"))
+    assert callable(pair[0].planar_fn) and callable(pair[1].planar_fn)
     ref = jax_raster_frame(sa, jcfg, JaxFlyCamera(jcfg.vp, jcfg.la, jcfg.up, jcfg.yview),
                            jpair[0])
     scene = _port_scene(sa)
