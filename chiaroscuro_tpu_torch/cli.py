@@ -21,7 +21,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from chiaroscuro_tpu_torch.ops import bvh_cuda, cluster_cuda, intersect_cuda, scatter_cuda
+from chiaroscuro_tpu_torch.ops import (bvh_cuda, cluster_cuda, intersect_cuda, scatter_cuda,
+                                       threefry_cuda)
 from chiaroscuro_tpu_torch.render.renderer import Renderer
 from chiaroscuro_tpu_torch.scene.config import RenderConfig
 from chiaroscuro_tpu_torch.scene.scene_arrays import load_scene
@@ -45,7 +46,7 @@ def resolve_device(platform: str) -> torch.device:
 def launch_counts() -> dict:
     """Every kernel's launch count so far, keyed by kernel name."""
     return {**intersect_cuda.LAUNCHES, **cluster_cuda.LAUNCHES, **bvh_cuda.LAUNCHES,
-            **scatter_cuda.LAUNCHES}
+            **scatter_cuda.LAUNCHES, **threefry_cuda.LAUNCHES}
 
 
 def run(argv: Sequence[str]) -> Renderer:

@@ -44,7 +44,8 @@ from chiaroscuro_tpu_torch.accel import bvh
 from chiaroscuro_tpu_torch.accel.clusters import build_clusters
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
 from chiaroscuro_tpu_torch.cli import launch_counts
-from chiaroscuro_tpu_torch.ops import bvh_cuda, cluster_cuda, intersect_cuda, scatter_cuda
+from chiaroscuro_tpu_torch.ops import (bvh_cuda, cluster_cuda, intersect_cuda, scatter_cuda,
+                                       threefry_cuda)
 from chiaroscuro_tpu_torch.parallel.sharding import (
     _pixel_grid,
     make_tile_mesh,
@@ -101,7 +102,7 @@ def _clusters(job, scene):
 
 def _reset_launches():
     for c in (intersect_cuda.LAUNCHES, cluster_cuda.LAUNCHES, bvh_cuda.LAUNCHES,
-              scatter_cuda.LAUNCHES):
+              scatter_cuda.LAUNCHES, threefry_cuda.LAUNCHES):
         c.update(dict.fromkeys(c, 0))
 
 
@@ -181,7 +182,7 @@ def _build_libraries(device_type):
     builders = [bvh._native_lib]
     if device_type == "cuda":
         builders += [intersect_cuda.build, cluster_cuda.build_cull, cluster_cuda.build,
-                     bvh_cuda.build, scatter_cuda.build]
+                     bvh_cuda.build, scatter_cuda.build, threefry_cuda.build]
     with ThreadPoolExecutor(len(builders)) as pool:
         for f in [pool.submit(b) for b in builders]:
             f.result()

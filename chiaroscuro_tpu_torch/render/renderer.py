@@ -155,8 +155,7 @@ def render_samples(
 
         def one_sample(s):
             with span("render.raygen"):
-                k0, k1 = prng.base_key(seed, pixel_idx, s + rep)
-                jx, jy = prng.aa_jitter_pair(k0, k1)
+                k0, k1, jx, jy = prng.raygen_streams(seed, pixel_idx, s + rep)
                 dirs = primary_ray_dirs_planar(
                     left_upper, dx, dy, pxf, pyf, jx, jy
                 )

@@ -15,7 +15,12 @@ path and renders do not depend on how pixels or samples are batched.
 torch has no full ``uint32`` arithmetic, so words live in ``int64`` tensors
 holding values in [0, 2**32): every ``+`` and ``<<`` is masked back to 32
 bits and ``>>`` acts on the masked (non-negative) value, which makes it the
-logical shift Threefry needs.
+logical shift Threefry needs.  That operator chain is the plain version
+(``*_plain``, and the blocks below them), which CPU tensors take.  On CUDA
+tensors the two call sites, :func:`raygen_streams` and
+:func:`bounce_uniforms_planar`, are one kernel launch each
+(``ops/threefry_cuda.py``), which keeps the words in uint32 registers and
+gives the plain version's bits.
 
 Per-bounce consumption layout (fixed, so streams never shift):
 
@@ -31,6 +36,8 @@ Per-bounce consumption layout (fixed, so streams never shift):
 from __future__ import annotations
 
 import torch
+
+from chiaroscuro_tpu_torch.ops import threefry_cuda
 
 DIM_LIGHT_SEL = 0
 DIM_LIGHT_U = 1
@@ -110,11 +117,37 @@ def aa_jitter_pair(k0, k1):
     return uniform_from_bits(b0), uniform_from_bits(b1)
 
 
-def bounce_uniforms_planar(k0, k1, bounce):
-    """(N_BOUNCE_DIMS, *B) uniforms for one path vertex, B = k0.shape.
+def raygen_streams(seed, pixel_idx, sample_idx):
+    """(k0, k1, jx, jy): each sample's key (:func:`base_key`) and its AA
+    jitter (:func:`aa_jitter_pair`), shaped like ``pixel_idx``.
+    ``sample_idx`` is a Python int or an integer tensor, 0-dim or shaped
+    like ``pixel_idx``.  On CUDA tensors (int64, contiguous) one kernel
+    launch, which reads a tensor ``sample_idx`` from device memory: a
+    captured pass draws the sample a replay writes there."""
+    if not pixel_idx.is_cuda:
+        return raygen_streams_plain(seed, pixel_idx, sample_idx)
+    return threefry_cuda.raygen(seed, pixel_idx, sample_idx)
 
-    The four Threefry blocks run as one batched evaluation over a leading
-    block axis; dims interleave as (block 0 word 0, block 0 word 1, ...)."""
+
+def raygen_streams_plain(seed, pixel_idx, sample_idx):
+    """Plain torch :func:`raygen_streams` (any device)."""
+    k0, k1 = base_key(seed, pixel_idx, sample_idx)
+    return (k0, k1) + aa_jitter_pair(k0, k1)
+
+
+def bounce_uniforms_planar(k0, k1, bounce):
+    """(N_BOUNCE_DIMS, *B) uniforms for one path vertex, B = k0.shape;
+    dims interleave as (block 0 word 0, block 0 word 1, ...).  On CUDA
+    tensors one kernel launch."""
+    if not k0.is_cuda:
+        return bounce_uniforms_plain(k0, k1, bounce)
+    return threefry_cuda.bounce_uniforms(k0, k1, bounce, N_BOUNCE_DIMS)
+
+
+def bounce_uniforms_plain(k0, k1, bounce):
+    """Plain torch :func:`bounce_uniforms_planar` (any device): the four
+    Threefry blocks run as one batched evaluation over a leading block
+    axis."""
     n_blocks = (N_BOUNCE_DIMS + 1) // 2
     blk = torch.arange(n_blocks, device=k0.device).reshape(
         (n_blocks,) + (1,) * k0.dim()

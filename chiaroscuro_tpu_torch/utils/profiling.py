@@ -192,8 +192,7 @@ def profile_phases(
     def raygen():
         acc = torch.zeros((3,) + B, device=dev)
         for smp in range(spp):
-            k0, k1 = prng.base_key(seed, pixel_idx, smp)
-            jx, jy = prng.aa_jitter_pair(k0, k1)
+            _, _, jx, jy = prng.raygen_streams(seed, pixel_idx, smp)
             acc = acc + primary_ray_dirs_planar(lu, dx, dy, pxf, pyf, jx, jy)
         return acc
 

@@ -11,10 +11,10 @@ raises, exits non-zero and prints no result line.
    K1/K2, ``csrc/cull_rows.cu`` K3, ``csrc/cull_beam.cu`` K3b (the beam
    cull), ``csrc/intersect_cluster.cu`` K4-K7,
    ``csrc/cull_rowhit.cu`` X1, ``csrc/dma_min.cu`` X2, ``csrc/bvh_traverse.cu``
-   B1/B2, and the host's ``csrc/bvh_builder.cpp`` by g++) build in parallel,
-   one compiler each; build seconds, registers, shared memory and spills are
-   printed, and K3's and K1/K2's compiled instruction mixes (``cuobjdump
-   -sass``).
+   B1/B2, ``csrc/threefry.cu`` R1, and the host's ``csrc/bvh_builder.cpp``
+   by g++) build in parallel, one compiler each; build seconds, registers,
+   shared memory and spills are printed, and K3's, K1/K2's and R1's
+   compiled instruction mixes (``cuobjdump -sass``).
 2. Dense kernels vs plain: K1/K2 against their plain torch versions at
    Cornell (T = 36) and a seeded random soup (T = 4,096), B0 = 4,608 rows
    (one 768x768 wavefront) with a third of the rows dead: bitwise equal;
@@ -80,6 +80,22 @@ raises, exits non-zero and prints no result line.
    K3b as in 2b on the primary, bounce and shadow wavefronts, the beam
    visit counts replayed on BIG3M_SAMPLE seeded rows that fit their list
    (an overflow row's replay would sweep up to all 23k clusters).
+2f. The sample streams' kernels, R1 (``ops/threefry_cuda.py``), at
+   R1_LANES (Cornell's 589,824 and the Sponza frame's 921,600 lanes, in
+   rows of 128): the bounce kernel bitwise equal to
+   ``prng.bounce_uniforms_plain`` (the int64 operator chain) at R1_BOUNCES
+   on seeded random keys with every pair of R1_EXTREMES in the first
+   lanes, and the raygen kernel to ``prng.raygen_streams_plain`` for a
+   Python-int, a 0-dim and a per-lane sample.  Each timed by CUDA events
+   over replays of a captured graph of launches (a launch is ~10 us, below
+   the host's dispatch), in turns with the plain chain, beside two bounds:
+   the counted one (R1_BOUNCE_OPS / R1_RAYGEN_OPS integer operations a lane
+   at the INT32 rate, against the bytes), and the compiled one
+   (``straight_line_bound``: the kernel's own SASS instructions a lane on
+   the INT32 pipe, IMAD on the FMA pipe, all on the issue slots, against
+   the bytes).  ptxas issues part of the integer adds as IMAD, which runs
+   beside the INT32 pipe, so the counted bound is no floor for the
+   compiled code; the JSON line below takes the compiled one.
 3. Cornell render: the CLI's batch render of ``scenes/cornell.rtc`` at its
    768x768 and k 6, at RENDER_SPP samples, into an EXR in a temporary
    directory that is read back; finite, non-trivial, one K1 and one K2
@@ -233,7 +249,8 @@ raises, exits non-zero and prints no result line.
 The line before the last is a JSON object of the kernels: for each, the
 launches of its path (K1-K7, K3b, B1/B2: the main-path renders of phases 3-3g,
 counts
-set to 0 before each run and read after it, summed over the runs; X1/X2:
+set to 0 before each run and read after it, summed over the runs; R1: every
+launch of phases 3-3g; each with phase 7's ranks' launches; X1/X2:
 phase 6; S1, ``scatter_rows``: phase 5(ii)'s first 262k step), its
 largest |kernel - plain|, its time (K1/K2 on phase 2's Cornell queries by
 CUDA events over a loop of calls, their kernel time by torch.profiler
@@ -241,7 +258,7 @@ printed beside it in phase 4; X2 and its library call: kernel time by
 torch.profiler; K4/K5 on the 262k wavefronts' sample, K6/K7 on the 481k
 ones', K3b's whole cull on the 481k primary wavefront, B1/B2 on the 481k
 primary and shadow wavefronts' sample; S1 and ATen's ``index_put_`` the mean
-over phase 5(ii)'s three recorded sums) and its
+over phase 5(ii)'s three recorded sums; R1 at 589,824 lanes, phase 2f) and its
 plain version's on the stated inputs, and the bound: the
 larger of the FP32 operations those inputs need (K1/K2: the tests the
 warp-uniform reject leaves; visits counted by the replay of the per-warp
@@ -252,7 +269,7 @@ B1/B2: BOX_OPS a step and MT_OPS a leaf test of the plain walk's; S1: an
 add a lane and column, against the cotangent and ids read and the table
 written once) over the
 card's unfused FP32 rate and the bytes read and written once over its
-memory rate.
+memory rate; R1's is phase 2f's compiled bound.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -325,6 +342,32 @@ CULL_CHUNK = 64
 # list is integer work and is not counted.
 BEAM_AXIS_OPS = 28
 BEAM_TAIL_OPS = 5
+# The sample streams' kernels, R1 (csrc/threefry.cu).  Integer operations
+# a lane: a Threefry-2x32 block is 2 + 5 x 3 key-schedule adds and 20
+# rounds of an add, a rotate and an xor, 77; a bounce lane is four blocks,
+# the key's parity word (2 xors) and seven conversions (a shift and an or;
+# the exact - 1.0f is the one float operation and is not counted), 324;
+# a raygen lane two blocks, two parity words and two conversions, 162.
+# Bytes a lane: a bounce reads two int64 words and writes seven floats,
+# 44; raygen reads the pixel (and a per-lane sample) and writes two int64
+# words and two floats, 32 (40).
+R1_BOUNCE_OPS = 324
+R1_RAYGEN_OPS = 162
+R1_BOUNCE_BYTES = 44
+R1_RAYGEN_BYTES = 32           # + 8 with a sample a lane
+R1_LANES = (589_824, 921_600)  # Cornell's 768x768 wavefront, the 1280x720 Sponza frame's
+R1_EXTREMES = (0, 1, 2**31 - 1, 2**31, 2**32 - 1)
+R1_BOUNCES = (1, 2, 6, 2**31)
+R1_SEED = 3_000_000_077        # above 2^31: the seed word's top bit set
+R1_REPS = {"kernel": 50, "plain": 4}   # launches a captured graph, timed by its replays
+R1_REPLAYS = 5
+# INT32 operations/s: 132 SMs x 64 lanes x 1.98 GHz.  Each of a SM's four
+# sub-partitions issues one warp instruction a clock (twice this rate in
+# lanes); its INT32 pipe (ALU_OPS) and the half of its FMA pipe that runs
+# IMAD take 16 lanes a clock each.
+PEAK_INT32 = 132 * 64 * 1.98e9
+ALU_OPS = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "PRMT", "LEA", "IMNMX", "IABS", "FLO",
+           "POPC")
 
 # us of the Triton K3 that csrc/cull_rows.cu replaced, (sweep, whole cull),
 # on the same seeded wavefronts, NVIDIA H100 80GB HBM3 at 700.00 W; None
@@ -352,7 +395,8 @@ KERNEL_IDS = {"closest_dense": "K1", "any_dense": "K2", "cull": "K3",
               "closest_resident": "K4", "any_resident": "K5",
               "closest_cluster": "K6", "any_cluster": "K7", "cull_rowhit": "X1",
               "cull_beam": "K3b",
-              "dma_min": "X2", "bvh_closest": "B1", "bvh_any": "B2"}
+              "dma_min": "X2", "bvh_closest": "B1", "bvh_any": "B2",
+              "threefry_bounce": "R1", "threefry_raygen": "R1"}
 
 
 def card_line() -> str:
@@ -654,7 +698,9 @@ def atrium_wavefronts(scene, xres, yres, dev, sorted_=True, clusters=None, pixel
     point = P.pscale(w, A["v0"]) + P.pscale(res.u, A["v0"] + A["e1"]) \
         + P.pscale(res.v, A["v0"] + A["e2"])
     normal = A["normal"]
-    un = prng.bounce_uniforms_planar(k0, k1, 1)
+    # The plain streams, as the keys above: the renders' R1 launches count
+    # alone (bitwise the same uniforms).
+    un = prng.bounce_uniforms_plain(k0, k1, 1)
     wmin = scene.world_min
     wext = torch.clamp_min(scene.world_max - wmin, 1e-6)
     park_x = scene.world_max[0] + (scene.world_max[0] - wmin[0]) + 1.0
@@ -1459,12 +1505,9 @@ def profile(fn, label, card):
     return {"wall_ms": wall_ms, "busy_ms": busy, "layers": {k: us / 1e3 for k, us in layers.items()}}
 
 
-def sass_mix(path, kernel, per, what="box"):
-    """Print the opcode counts of each compiled variant of ``kernel`` in the
-    library at ``path`` (``cuobjdump -sass``), and where ``per`` > 1 each
-    count / ``per``: for K3 the kernel's loop over a chunk of ``per`` boxes
-    is fully unrolled, so that is the count per box (the code outside the
-    loop adds a few)."""
+def sass_counts(path):
+    """{function: {opcode: count}} of the library at ``path`` (``cuobjdump
+    -sass``; an opcode without its modifiers), or None where that failed."""
     from chiaroscuro_tpu_torch.ops.cuda_build import nvcc
 
     tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
@@ -1472,7 +1515,7 @@ def sass_mix(path, kernel, per, what="box"):
         if os.path.exists(tool) else None
     if proc is None or proc.returncode != 0:
         print(f"[build] cuobjdump -sass {os.path.basename(path)} failed: not counted")
-        return
+        return None
     mixes, name = {}, None
     for line in proc.stdout.splitlines():
         if "Function :" in line:
@@ -1482,6 +1525,18 @@ def sass_mix(path, kernel, per, what="box"):
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
         if name is not None and m:
             mixes[name][m.group(1)] = mixes[name].get(m.group(1), 0) + 1
+    return mixes
+
+
+def sass_mix(path, kernel, per, what="box"):
+    """Print the opcode counts of each compiled variant of ``kernel`` in the
+    library at ``path`` (``cuobjdump -sass``), and where ``per`` > 1 each
+    count / ``per``: for K3 the kernel's loop over a chunk of ``per`` boxes
+    is fully unrolled, so that is the count per box (the code outside the
+    loop adds a few)."""
+    mixes = sass_counts(path)
+    if mixes is None:
+        return
     for name, mix in mixes.items():
         if kernel not in name:
             continue
@@ -1492,6 +1547,115 @@ def sass_mix(path, kernel, per, what="box"):
                                                      else "") for k in keys)
         print(f"[build] sass {name}: {sum(mix.values())} instructions"
               + (f"; per {what} of {per}" if per > 1 else "") + f": {parts}")
+
+
+def graph_turns(fns, reps):
+    """Microseconds a call of each named fn by CUDA events over replays of
+    a CUDA graph that holds ``reps[name]`` calls (the host's launch cost
+    left out), in turns as :func:`time_turns`."""
+    graphs = {}
+    for n, fn in fns.items():
+        fn()
+        sync()
+        graphs[n] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[n]):
+            for _ in range(reps[n]):
+                fn()
+    t = time_turns({n: g.replay for n, g in graphs.items()}, dict.fromkeys(graphs, R1_REPLAYS))
+    del graphs
+    torch.cuda.empty_cache()
+    return {n: (u / reps[n], tuple(x / reps[n] for x in turns)) for n, (u, turns) in t.items()}
+
+
+def straight_line_bound(mix, lanes, nbytes):
+    """(bound_ms, bound_by) of a kernel without loops or branches taken by
+    a full lane (its every instruction runs once a lane) from its compiled
+    instruction mix: the INT32 pipe's instructions (ALU_OPS), IMAD on the
+    FMA pipe, every instruction on the issue slots (twice the pipes' rate),
+    and the bytes moved once."""
+    alu = sum(mix.get(k, 0) for k in ALU_OPS)
+    issued = sum(n for k, n in mix.items() if k != "NOP")
+    t = {"the INT32 pipe": alu / PEAK_INT32, "IMAD on the FMA pipe": mix.get("IMAD", 0) / PEAK_INT32,
+         "issue": issued / (2 * PEAK_INT32), "bytes": nbytes / PEAK_BYTES}
+    by = max(t, key=t.get)
+    return t[by] * lanes * 1e3, by
+
+
+def streams_phase(tc, prng, card, dev):
+    """Phase 2f: R1 bitwise its plain versions, then timed beside them and
+    its bounds, at each of R1_LANES.  Returns {kernel: {lanes: {"us",
+    "plain_us", "err", "bound", "counted"}}}."""
+    mixes = sass_counts(tc.build()[1]["path"]) or {}
+    out = {"threefry_bounce": {}, "threefry_raygen": {}}
+    ext = torch.tensor(R1_EXTREMES, dtype=torch.int64)
+    for lanes in R1_LANES:
+        rows = lanes // 128
+        g = torch.Generator().manual_seed(20261019 + lanes)
+        k0, k1, smp_lanes = (torch.randint(0, 2**32, (rows, 128), generator=g, dtype=torch.int64)
+                             for _ in range(3))
+        # Every pair of extreme words in the first lanes.
+        k0.view(-1)[:ext.numel() ** 2] = ext.repeat_interleave(ext.numel())
+        k1.view(-1)[:ext.numel() ** 2] = ext.repeat(ext.numel())
+        k0, k1, smp_lanes = k0.to(dev), k1.to(dev), smp_lanes.to(dev)
+        pix = torch.arange(lanes, dtype=torch.int64, device=dev).reshape(rows, 128)
+        smp = torch.tensor(2**32 - 1, dtype=torch.int64, device=dev)
+        err = dict.fromkeys(out, 0.0)
+        for bounce in R1_BOUNCES:
+            got = tc.bounce_uniforms(k0, k1, bounce, prng.N_BOUNCE_DIMS)
+            want = prng.bounce_uniforms_plain(k0, k1, bounce)
+            if got.shape != want.shape or not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"R1 bounce {bounce} at {lanes} lanes differs from "
+                                     "prng.bounce_uniforms_plain")
+            err["threefry_bounce"] = max(err["threefry_bounce"], max_err(got, want))
+        for what, s in (("a Python int", 2**31 + 5), ("a 0-dim tensor", smp),
+                        ("one a lane", smp_lanes)):
+            got = tc.raygen(R1_SEED, pix, s)
+            want = prng.raygen_streams_plain(R1_SEED, pix, s)
+            bad = [f for f, a, b in zip(("k0", "k1", "jx", "jy"), got, want)
+                   if a.dtype != b.dtype or not torch.equal(bits(a), bits(b))]
+            if bad:
+                raise AssertionError(f"R1 raygen at {lanes} lanes, sample {what}: {bad} differ "
+                                     "from prng.raygen_streams_plain")
+            err["threefry_raygen"] = max([err["threefry_raygen"]] + [
+                max_err(a, b) for a, b in zip(got[2:], want[2:])])
+        print(f"[streams] R1 at {lanes} lanes: bounce bitwise prng.bounce_uniforms_plain at "
+              f"bounces {R1_BOUNCES} (random keys, every pair of {R1_EXTREMES} in the first "
+              "lanes); raygen bitwise prng.raygen_streams_plain for a Python-int, a 0-dim "
+              "and a per-lane sample")
+        # Timed as the frames run them: the pass's sample as a 0-dim tensor.
+        calls = {
+            "threefry_bounce": (lambda: tc.bounce_uniforms(k0, k1, 3, prng.N_BOUNCE_DIMS),
+                                lambda: prng.bounce_uniforms_plain(k0, k1, 3),
+                                R1_BOUNCE_OPS, R1_BOUNCE_BYTES),
+            "threefry_raygen": (lambda: tc.raygen(R1_SEED, pix, smp),
+                                lambda: prng.raygen_streams_plain(R1_SEED, pix, smp),
+                                R1_RAYGEN_OPS, R1_RAYGEN_BYTES),
+        }
+        for name, (kern, plain, ops, nbytes) in calls.items():
+            t = graph_turns({"plain": plain, "kernel": kern}, R1_REPS)
+            us = t["kernel"][0]
+            t_ops, t_bytes = ops * lanes / PEAK_INT32, nbytes * lanes / PEAK_BYTES
+            counted = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+            mix = next((m for f, m in mixes.items() if f"{name}_kernel" in f), None)
+            sass = None if mix is None else straight_line_bound(mix, lanes, nbytes)
+            parts = [f"kernel {us:.2f} us (turns {t['kernel'][1][0]:.2f}, "
+                     f"{t['kernel'][1][1]:.2f})",
+                     f"plain int64 chain {t['plain'][0]:.1f} us ({t['plain'][0] / us:.0f}x)",
+                     f"counted bound {counted[0] * 1e3:.2f} us ({counted[1]}: {ops} integer "
+                     f"operations and {nbytes} B a lane; the kernel at "
+                     f"{100 * counted[0] * 1e3 / us:.1f}% of it)"]
+            if mix is not None:
+                issued = sum(n for k, n in mix.items() if k != "NOP")
+                parts.append(
+                    f"compiled: {issued} instructions a lane, {sum(mix.get(k, 0) for k in ALU_OPS)} "
+                    f"on the INT32 pipe, {mix.get('IMAD', 0)} IMAD; bound {sass[0] * 1e3:.2f} us "
+                    f"({sass[1]}; the kernel at {100 * sass[0] * 1e3 / us:.1f}% of it)")
+            print(f"[timing] {card}: R1 {name} at {lanes} lanes (CUDA events over replays of "
+                  f"a graph of {R1_REPS['kernel']} launches, {R1_REPS['plain']} plain calls): "
+                  + "; ".join(parts))
+            out[name][lanes] = {"us": us, "plain_us": t["plain"][0], "err": err[name],
+                                "bound": counted if sass is None else sass, "counted": counted}
+    return out
 
 
 def device_us(fn, reps, name=None):
@@ -1961,13 +2125,16 @@ def shard_jobs(ps, RenderConfig, repo, cam):
 
 def shard_frame_want(cc, job):
     """The launches one rank makes for a phase 7 frame: its path's kernels
-    once a sample x bounce (the cluster path culls twice)."""
+    once a sample x bounce (the cluster path culls twice), and the sample
+    streams' raygen kernel once a sample, their bounce kernel once a sample
+    x bounce."""
     cfg = job.cfg
     per = {"auto": {"closest": 1, "any": 1}, "bvh": {"bvh_closest": 1, "bvh_any": 1}}
     if cfg.obj_path.startswith("synthetic:") and cfg.intersector == "auto":
         closest, occlusion = cc.ROUTES["stream"]
         per["auto"] = {"cull": 2, closest: 1, occlusion: 1}
-    return {k: m * cfg.samples * cfg.k for k, m in per[cfg.intersector].items()}
+    return {**{k: m * cfg.samples * cfg.k for k, m in per[cfg.intersector].items()},
+            "threefry_raygen": cfg.samples, "threefry_bounce": cfg.samples * cfg.k}
 
 
 def shard_label(job):
@@ -1988,9 +2155,10 @@ def main() -> int:
     from chiaroscuro_tpu_torch.ops import cluster_cuda as cc
     from chiaroscuro_tpu_torch.ops import cuda_build
     from chiaroscuro_tpu_torch.ops import intersect_cuda as ic
-    from chiaroscuro_tpu_torch.ops import scatter_cuda
+    from chiaroscuro_tpu_torch.ops import scatter_cuda, threefry_cuda
     from chiaroscuro_tpu_torch.render import image_io
     from chiaroscuro_tpu_torch.render.renderer import render_image, render_samples
+    from chiaroscuro_tpu_torch.sampling import prng
     from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
     from chiaroscuro_tpu_torch.scene.config import RenderConfig
     from chiaroscuro_tpu_torch.scene.obj_loader import load_obj
@@ -2008,7 +2176,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     counts = (ic.LAUNCHES, cc.LAUNCHES, bc.LAUNCHES, scatter_cuda.LAUNCHES)
-    main_launches = {k: 0 for c in counts for k in c}   # summed over the CLI runs
+    # Summed over the CLI runs; the sample streams' (R1, every render's) over
+    # phases 3-3g whole and phase 7's ranks.
+    main_launches = {k: 0 for c in counts + (threefry_cuda.LAUNCHES,) for k in c}
 
     def add_launches(launches):
         for k, n in launches.items():
@@ -2027,7 +2197,7 @@ def main() -> int:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {kind} x{count}")
     t0 = time.perf_counter()
     builders = (ic.build, cc.build_cull, cc.build_cull_beam, cc.build, xc.build, dm.build,
-                bc.build, scatter_cuda.build,
+                bc.build, scatter_cuda.build, threefry_cuda.build,
                 lambda: cuda_build.build_host_library("bvh_builder"))
     with ThreadPoolExecutor(len(builders)) as pool:
         infos = [f.result()[1] for f in [pool.submit(b) for b in builders]]
@@ -2050,6 +2220,8 @@ def main() -> int:
     # so counts / 16 approximate the instructions a triangle (the walk adds
     # a few).
     sass_mix(cc.build()[1]["path"], "ILi128E", 16, "triangle (2 inlined visits x 8)")
+    # R1: each kernel's whole mix (straight-line code: phase 2f bounds it).
+    sass_mix(threefry_cuda.build()[1]["path"], "threefry_", 1)
     print(f"[build] K4/K6 at M = 128: {cc.build()[0].closest_visits_smem_bytes(128)} B of "
           "dynamic shared memory a block (its warps' rings and mbarriers); K5/K7 none")
 
@@ -2313,6 +2485,11 @@ def main() -> int:
     cluster_errs = {k: max(e.get(k, 0.0) for e in (big_errs, mid_errs, small_errs, nano_errs,
                                                    huge_errs))
                     for k in ("cull", *cc.ROUTES["resident"], *cc.ROUTES["stream"])}
+    # --- phase 2f: the sample streams' kernels (R1) vs plain -------------------
+    with torch.no_grad():
+        streams = streams_phase(threefry_cuda, prng, card, dev)
+    lap("phase 2f")
+    reset(threefry_cuda.LAUNCHES)      # from here on, the renders' own launches
     # --- phase 3: Cornell render -------------------------------------------------
     # The EXR shim the first export loads: built by g++, or (a host without
     # OpenEXR 3.1) a failed build, recorded so that a later process raises
@@ -2527,7 +2704,8 @@ def main() -> int:
         # The render's own launches, which the CLI prints before the profile.
         rendered = ast.literal_eval(re.search(r"^Kernel launches: (\{.*\})$", out.getvalue(),
                                               re.M).group(1))
-        want = {"closest": RENDER_SPP * RENDER_K, "any": RENDER_SPP * RENDER_K}
+        want = {"closest": RENDER_SPP * RENDER_K, "any": RENDER_SPP * RENDER_K,
+                "threefry_raygen": RENDER_SPP, "threefry_bounce": RENDER_SPP * RENDER_K}
         if rendered != want:
             raise AssertionError(f"Phong render launches {rendered} != {want}")
         if "phase breakdown (full" not in out.getvalue() or not p_cfg.profile:
@@ -2872,6 +3050,7 @@ def main() -> int:
     del mid
     torch.cuda.empty_cache()
     lap("phase 3g, preview")
+    add_launches(threefry_cuda.LAUNCHES)
     # --- phase 4: timings ---------------------------------------------------------
     with torch.no_grad():
         t_cornell = time_dense(ic, card, "cornell queries", c_rows, c_attrs,
@@ -3221,6 +3400,12 @@ def main() -> int:
         max(r["err"] for r in s1), sum(r["us"] for r in s1) / len(s1) / 1e3,
         sum(r["plain_us"] for r in s1) / len(s1) / 1e3, max(r["bound"] for r in s1),
         launches=s1_launches, library_ms=sum(r["library_us"] for r in s1) / len(s1) / 1e3))
+    for name, fused in (("threefry_bounce", "chiaroscuro_tpu/sampling/prng.py:106"),
+                        ("threefry_raygen", "chiaroscuro_tpu/sampling/prng.py:87 and :99")):
+        r1 = streams[name][R1_LANES[0]]
+        kernels.append(entry(name, "cuda", "chiaroscuro_tpu_torch/csrc/threefry.cu",
+                             f"none: XLA's fusion of {fused}", r1["err"], r1["us"] / 1e3,
+                             r1["plain_us"] / 1e3, r1["bound"]))
     missing = [k["name"] for k in kernels if not k["launches"]]
     if missing:
         raise AssertionError(f"kernels never launched on their paths: {missing}")

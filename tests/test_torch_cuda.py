@@ -1468,7 +1468,8 @@ def test_sharded_frames_on_card_equal_render_samples(name, world, sharded_ranks)
         got = rank[j]
         assert torch.equal(_bits(got["frame"]), _bits(want))
         assert {k: n for k, n in got["launches"].items() if n} == {
-            k: m * cfg.samples * cfg.k for k, m in SHARDED_WANT[name].items()}
+            **{k: m * cfg.samples * cfg.k for k, m in SHARDED_WANT[name].items()},
+            "threefry_raygen": cfg.samples, "threefry_bounce": cfg.samples * cfg.k}
 
 
 @pytest.mark.cuda

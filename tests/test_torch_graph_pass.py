@@ -17,7 +17,9 @@ eager renders averaged by numpy, bitwise, and count one eager pass, one
 capture and four replays; each returned array outlives the next pass; a
 pass under ``counting()`` runs eagerly and records the eager pass's
 entries; a pass after the pair or the scene is swapped runs eagerly; the
-cluster pair's passes all run eagerly.
+cluster pair's passes all run eagerly; the sample streams' kernels give
+the passes of the int64 operator chain bitwise, launch on the eager pass
+and the capture but not on a replay, and leave no xor operator to run.
 
     python -m pytest --noconftest -q tests/test_torch_graph_pass.py
 """
@@ -29,8 +31,10 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from chiaroscuro_tpu_torch.accel.dispatch import make_intersectors
+from chiaroscuro_tpu_torch.ops import threefry_cuda
 from chiaroscuro_tpu_torch.render import renderer as R
 from chiaroscuro_tpu_torch.sampling import prng
 from chiaroscuro_tpu_torch.scene.builtin import CORNELL_CAMERA, cornell_box
@@ -381,3 +385,52 @@ def test_cluster_passes_stay_eager(cuda_device):
         want = _numpy_mean(scene, cfg, r.intersectors, layer)
         assert _bits_equal(r.pixels, want) and r.max_val == float(want.max(initial=0.0))
     assert _delta(before) == {"captured": 0, "replayed": 0, "eager": 3}
+
+
+class _OpNames(TorchDispatchMode):
+    """The names of the ATen operators run while the mode is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", ["dense", "bvh"])
+def test_stream_kernels_keep_passes_bitwise(pair, cuda_device, monkeypatch):
+    """Three passes (eager, captured, replayed) whose sample streams run as
+    kernels equal, bitwise, three passes of a renderer whose streams take
+    the int64 operator chain (``prng``'s plain versions patched in); the
+    kernels launch once a sample and a bounce on the eager pass and the
+    capture, and not on the replay; an eager render through the kernels
+    runs no xor, the chain's mark, where the chain's render runs some."""
+    scene, cfg = _card_scene(pair, cuda_device)
+
+    def three_passes():
+        r, images, launched = R.Renderer(scene, cfg), [], []
+        for _ in range(3):
+            before = dict(threefry_cuda.LAUNCHES)
+            images.append(_quiet(r.ray_trace).copy())
+            launched.append({k: n - before[k] for k, n in threefry_cuda.LAUNCHES.items()})
+        with _OpNames() as ops:
+            R.render_image(scene, cfg, intersectors=r.intersectors)
+        return images, launched, {n for n in ops.names if "xor" in n}
+
+    before = _passes()
+    got, launched, xors = three_passes()
+    assert _delta(before) == {"captured": 1, "replayed": 2, "eager": 1}
+    per_pass = {"threefry_bounce": cfg.samples * cfg.k, "threefry_raygen": cfg.samples}
+    assert launched == [per_pass, per_pass, dict.fromkeys(per_pass, 0)]
+    assert not xors
+    monkeypatch.setattr(prng, "raygen_streams", prng.raygen_streams_plain)
+    monkeypatch.setattr(prng, "bounce_uniforms_planar", prng.bounce_uniforms_plain)
+    want, launched, xors = three_passes()
+    assert launched == [dict.fromkeys(per_pass, 0)] * 3
+    assert xors
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert float(w.sum()) > 0, i
+        assert _bits_equal(g, w), i
